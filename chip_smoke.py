@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Smoke run of the tpurt_torch port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
+
+  device   card name, power limit, torch version; no card is an error
+  build    nvcc the traversal kernel and g++ the native host core, together
+  scene    write the bench's Sponza-like scene (~215k triangles), load it,
+           build the renderer at 1920x1080 on the card, time each host step
+  kernels  hold K1 (closest hit: 65,536 camera rays, 65,536 bounce rays with
+           cell masks) and K2 (occlusion: 65,536 shadow rays to the three
+           lights) against their plain PyTorch versions on the same inputs:
+           t bit-equal wherever prim agrees, prim different only on exact-t
+           ties, pending and blocked equal; CUDA-event timings of both
+  render   Renderer.render at 1920x1080: 1 warm-up and 2 timed samples,
+           with the kernel launch counters zeroed just before; NaN pixels
+           must be 0, the mean radiance > 0; the PNG goes to smoke_out/.
+           The warm-up sample keeps the inputs and kernel outputs of the
+           first camera wave, bounce wave, alpha re-trace, shadow wave and
+           shadow re-trace it launches; after the timed samples each is
+           held against the plain version with the rule of `kernels`
+  golden   the box golden (64x48, 8 spp) rendered on the card, RMSE against
+           tests/goldens/box_64x48_8spp.npz (fail above 1e-3)
+
+Then it prints the card's name and power limit as nvidia-smi gives them,
+the {"kernels": [...]} line, and last {"ok": true, "device": {...}}. A
+watchdog ends the run with exit code 1, naming the phase it was in, after
+600 seconds. Needs torch with CUDA, numpy, nvcc and g++; no JAX, no
+Pillow, no prebuilt artefact.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+DEADLINE_S = 600
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "smoke_out")
+
+# bench.py's Sponza-like scene, camera and lights
+SCENE_KW = dict(columns=12, foliage=96, stacks=8, segments=28, rings=20)
+CAMERA = ([0.0, -4.0, 0.0], 0.7, -0.1)
+LIGHTS = [((-8.0, -5.0, -2.0), 0.1, (0.8, 0.6, 0.6), 500.0),
+          ((8.0, -5.0, -2.5), 0.1, (0.4, 0.7, 0.6), 500.0),
+          ((0.0, -7.5, 0.0), 0.5, (0.9, 0.9, 0.7), 1000.0)]
+WIDTH, HEIGHT = 1920, 1080
+N_RAYS = 65536
+REPS = 5
+
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# float operations of one traversal step, counted from the kernel source:
+# per child box 6 sub + 6 mul + 6 min/max + 6 reductions + 1 compare; per
+# triangle ~60 (edges, cross products, det, reciprocal, u, v, t, tests)
+OPS_PER_BOX = 25
+OPS_PER_TRIANGLE = 60
+
+_state = {"phase": "start"}
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def watchdog():
+    emit({"error": "deadline", "phase": _state["phase"], "seconds": DEADLINE_S})
+    sys.stdout.flush()
+    os._exit(1)
+
+
+class Phase:
+    def __init__(self, name):
+        self.name = name
+        self.info = {}
+
+    def __enter__(self):
+        _state["phase"] = self.name
+        self.t0 = time.perf_counter()
+        return self.info
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            emit({"phase": self.name, "seconds": round(time.perf_counter() - self.t0, 3),
+                  **self.info})
+        return False
+
+
+def nvidia_smi():
+    try:
+        res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi failed: {e}"
+    return res.stdout.strip().splitlines()[0] if res.returncode == 0 and res.stdout else "unknown"
+
+
+def cuda_ms(fn):
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def compare(kind, k, p):
+    """Kernel (t, prim, flag) against plain (t, prim, flag): counts of exact
+    agreement, exact-t ties, and anything else."""
+    import torch
+
+    tk, pk, fk = k
+    tp, pp, fp = p
+    prim_eq = pk == pp
+    t_eq = tk.view(torch.int32) == tp.view(torch.int32)
+    ties = ~prim_eq & t_eq
+    flag_bad = prim_eq & ((fk > 0.5) != (fp > 0.5))
+    if kind == "occlusion":
+        flag_bad = (fk > 0.5) != (fp > 0.5)
+    bad = (prim_eq & ~t_eq) | (~prim_eq & ~t_eq) | flag_bad
+    hit = prim_eq & (pk >= 0)
+    err = float((tk[hit] - tp[hit]).abs().max()) if bool(hit.any()) else 0.0
+    return {"rays": int(tk.numel()), "prim_agree": int(prim_eq.sum()),
+            "ties": int(ties.sum()), "flag_set": int((fk > 0.5).sum()),
+            "mismatch": int(bad.sum()), "max_abs_err": err}
+
+
+def bound(stats, n, row_width, group):
+    """Least time for the work this batch needed: the larger of the float
+    operations (the box and triangle tests the plain traversal counted)
+    over the f32 peak and the bytes over the memory rate (rays read once,
+    results written once, each node and leaf row read once)."""
+    ops = (float(stats["box_tests"].sum()) * OPS_PER_BOX
+           + float(stats["leaf_visits"].sum()) * group * OPS_PER_TRIANGLE)
+    nbytes = (n * (32 + 12) + stats["node_rows_read"] * 128 * 4
+              + stats["leaf_rows_read"] * row_width * 4)
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
+def main():
+    timer = threading.Timer(DEADLINE_S, watchdog)
+    timer.daemon = True
+    timer.start()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        emit({"error": "no CUDA device: torch.cuda.is_available() is false"})
+        return 2
+    with Phase("device") as info:
+        import tpurt_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+        smi = nvidia_smi()
+        info.update(name=torch.cuda.get_device_name(0), nvidia_smi=smi,
+                    torch=torch.__version__, cuda=torch.version.cuda,
+                    count=torch.cuda.device_count())
+
+    import numpy as np
+
+    from tpurt_torch import film, native
+    from tpurt_torch.bvh.traverse import _octant_morton_key
+    from tpurt_torch.camera import Camera, camera_rays_for_rows
+    from tpurt_torch.config import RenderConfig, SphereLight
+    from tpurt_torch.kernels import wide
+    from tpurt_torch.kernels.bsdf import _cross, _dot, _normalize
+    from tpurt_torch.kernels.intersect import intersect_spheres
+    from tpurt_torch.renderer import Renderer
+    from tpurt_torch.scene.procedural import write_box_scene, write_sponza_like_scene
+
+    dev = torch.device("cuda", 0)
+
+    with Phase("build") as info:
+        times, errors = {}, []
+
+        def run(name, fn):
+            t0 = time.perf_counter()
+            try:
+                fn(force=True)
+            except Exception as e:  # reported below; the phase fails
+                errors.append(f"{name}: {e}")
+            times[name] = round(time.perf_counter() - t0, 3)
+
+        threads = [threading.Thread(target=run, args=("nvcc_wide_traverse",
+                                                      wide.build_kernel_library)),
+                   threading.Thread(target=run, args=("gxx_native", native.build))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise RuntimeError("; ".join(errors))
+        info.update(times)
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory()
+    lights = [SphereLight(*x) for x in LIGHTS]
+    camera = Camera.from_angles(*CAMERA)
+    with Phase("scene") as info:
+        t0 = time.perf_counter()
+        path = write_sponza_like_scene(os.path.join(tmp.name, "sponza.gltf"), **SCENE_KW)
+        write_s = time.perf_counter() - t0
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_samples=1024)
+        r = Renderer.from_gltf(path, config=cfg, camera=camera, lights=lights, device=dev)
+        kb = r.bvh
+        info.update(triangles=int(r.device_scene.tri_pos.shape[0]),
+                    wide_nodes=int(kb.node_rows.shape[1]),
+                    leaves=int(kb.tri_rows.shape[0]),
+                    leaf_row_floats=int(kb.tri_rows.shape[1]),
+                    stack_bound=kb.stack_bound,
+                    table_mb=round((kb.node_rows.numel() + kb.tri_rows.numel()) * 4 / 2**20, 2),
+                    has_alpha=r.has_alpha, scene_write_s=round(write_s, 3),
+                    **{k: round(v, 3) for k, v in r.timings.items()})
+
+    kernel_rows = []
+    with Phase("kernels") as info:
+        rs = np.random.RandomState(7)
+        o_all, d_all, _ = camera_rays_for_rows(r.camera, 0, HEIGHT, WIDTH, HEIGHT,
+                                               cfg.tan_half_fov, 0, cfg.seed, device=dev)
+        # a coherent 256 x 256 pixel window at the image centre, row-major
+        rows = torch.arange(HEIGHT // 2 - 128, HEIGHT // 2 + 128, device=dev)
+        cols = torch.arange(WIDTH // 2 - 128, WIDTH // 2 + 128, device=dev)
+        pick = (rows[:, None] * WIDTH + cols[None, :]).reshape(-1)
+        o_cam = o_all[pick].contiguous()
+        d_cam = d_all[pick].contiguous()
+        zeros = torch.zeros(N_RAYS, dtype=torch.float32, device=dev)
+        far = torch.full((N_RAYS,), 1e9, dtype=torch.float32, device=dev)
+        ds = r.device_scene
+
+        # the camera hits seed the bounce and shadow batches
+        t_c, p_c, _ = wide.traverse_plain(kb.node_rows, kb.tri_rows, o_cam, d_cam, zeros,
+                                          far, group=kb.group_size, arity=kb.arity,
+                                          occlusion=False, all_definite=False,
+                                          cell_masks=False)
+        hit = p_c >= 0
+        tri = ds.tri_pos[torch.clamp(p_c, min=0).long()]
+        nrm = _normalize(_cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]))
+        nrm = torch.where((_dot(nrm, d_cam) > 0)[:, None], -nrm, nrm)
+        p_hit = torch.where(hit[:, None], o_cam + t_c[:, None] * d_cam, o_cam)
+        org = (p_hit + 0.01 * torch.where(hit[:, None], nrm, torch.zeros_like(nrm))).contiguous()
+        rnd = torch.from_numpy(rs.randn(N_RAYS, 3).astype(np.float32)).to(dev)
+        rnd = _normalize(rnd)
+        d_b = torch.where((hit & (_dot(rnd, nrm) < 0))[:, None], -rnd, rnd).contiguous()
+        lp = torch.tensor([l.position for l in lights], dtype=torch.float32, device=dev)
+        lp = lp[torch.arange(N_RAYS, device=dev) % len(lights)]
+        d_s = _normalize(lp - org).contiguous()
+        s_hit, s_t, _ = intersect_spheres(org, d_s, ds.lights, zeros, 1e9)
+        t_lim = torch.where(s_hit, s_t, far).contiguous()
+
+        # secondary batches go in the octant-Morton order the main path
+        # sorts them into
+        every = torch.ones(N_RAYS, dtype=torch.bool, device=dev)
+        ob = torch.argsort(_octant_morton_key(kb, org, d_b, every), stable=True)
+        os_ = torch.argsort(_octant_morton_key(kb, org, d_s, every), stable=True)
+        cases = [("camera", "closest", o_cam, d_cam, far, False),
+                 ("bounce", "closest", org[ob].contiguous(), d_b[ob].contiguous(), far, True),
+                 ("shadow", "occlusion", org[os_].contiguous(), d_s[os_].contiguous(),
+                  t_lim[os_].contiguous(), False)]
+        results = {}
+        for name, mode, o, d, tl, masks in cases:
+            occl = mode == "occlusion"
+            kw = dict(occlusion=occl, all_definite=not r.has_alpha, cell_masks=masks)
+
+            def kern():
+                return wide.traverse_cuda(kb, o, d, zeros, tl, **kw)
+
+            stats = {}
+
+            def plain(stats=stats):
+                return wide.traverse_plain(kb.node_rows, kb.tri_rows, o, d, zeros, tl,
+                                           group=kb.group_size, arity=kb.arity,
+                                           stats=stats, **kw)
+
+            out_k = kern()
+            out_p = plain()
+            wide.check_kernel_errors(dev)
+            cmp = compare(mode, out_k, out_p)
+            b_ms, b_by, ops, nbytes = bound(stats, N_RAYS, kb.tri_rows.shape[1],
+                                            kb.group_size)
+            k_ms, p_ms = [], []
+            for i in range(REPS):  # in turns: plain, kernel, kernel, plain, ...
+                order = (plain, kern) if i % 2 == 0 else (kern, plain)
+                for fn in order:
+                    ms, _ = cuda_ms(fn)
+                    (p_ms if fn is plain else k_ms).append(ms)
+            results[name] = dict(mode=mode, ms=median(k_ms), plain_ms=median(p_ms),
+                                 bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
+                                 node_visits_per_ray=float(stats["node_visits"].float().mean()),
+                                 leaf_visits_per_ray=float(stats["leaf_visits"].float().mean()),
+                                 box_tests_per_ray=float(stats["box_tests"].float().mean()),
+                                 **cmp)
+        info.update(cases=results)
+        bad = sum(v["mismatch"] for v in results.values())
+        if bad:
+            raise RuntimeError(f"kernel/plain mismatches beyond exact-t ties: {bad}")
+        if results["bounce"]["flag_set"] == 0:
+            raise RuntimeError("no pending hit in the bounce batch: cell masks not exercised")
+
+        def entry(name, replaces, names):
+            sel = [results[c] for c in names]
+            by_ops = sum(x["ops"] for x in sel) / PEAK_F32
+            by_bytes = sum(x["bytes"] for x in sel) / PEAK_BYTES
+            return {"name": name, "route": "cuda",
+                    "source": "tpurt_torch/csrc/wide_traverse.cu",
+                    "replaces": replaces, "launches": 0,
+                    "max_abs_err": max(x["max_abs_err"] for x in sel),
+                    "ms": sum(x["ms"] for x in sel),
+                    "plain_ms": sum(x["plain_ms"] for x in sel),
+                    "bound_ms": max(by_ops, by_bytes) * 1e3,
+                    "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+                    "library_ms": None, "rays": N_RAYS * len(sel), "cases": names}
+
+        kernel_rows = [
+            entry("K1 wide closest hit", "tpurt/kernels/pallas_wide.py:1500", ["camera", "bounce"]),
+            entry("K2 wide occlusion", "tpurt/kernels/pallas_wide.py:1500", ["shadow"]),
+        ]
+
+    with Phase("render") as info:
+        # during the warm-up sample, keep the first launch of each kind of
+        # wave (inputs and kernel outputs) to hold against the plain version
+        # below, outside the timed samples
+        captured = {}
+        launch = wide.traverse_cuda
+
+        def capture(kbvh, o, d, t_min, t_limit, **kw):
+            out = launch(kbvh, o, d, t_min, t_limit, **kw)
+            retrace = bool((t_min != 0).any())
+            if kw["occlusion"]:
+                name = "shadow_retrace" if retrace else "shadow_wave"
+            elif retrace:
+                name = "alpha_retrace"
+            else:
+                name = "bounce_wave" if "camera_wave" in captured else "camera_wave"
+            if name not in captured:
+                captured[name] = ((o.clone(), d.clone(), t_min.clone(), t_limit.clone()),
+                                  kw, tuple(x.clone() for x in out))
+            return out
+
+        for k in wide.LAUNCHES:
+            wide.LAUNCHES[k] = 0
+        wide.traverse_cuda = capture
+        try:
+            t0 = time.perf_counter()
+            r.render(1)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+        finally:
+            wide.traverse_cuda = launch
+        r0 = r.rays.physical
+        t0 = time.perf_counter()
+        r.render(3)
+        torch.cuda.synchronize()
+        timed = time.perf_counter() - t0
+        launches = dict(wide.LAUNCHES)
+        rays = r.rays.physical - r0
+        accum = r.accum
+        nan_px = int(torch.isnan(accum).any(dim=-1).sum())
+        red = int(((accum[..., 0] == 1) & (accum[..., 1] == 0) & (accum[..., 2] == 0)).sum())
+        mean = float(accum[..., :3].mean())
+        png_path = os.path.join(OUT_DIR, "sponza_1080p_3spp.png")
+        r.save_png(png_path)
+        info.update(warmup_s=round(warm, 3), seconds_per_sample=round(timed / 2, 3),
+                    rays_physical_2spp=rays, mrays_per_s=round(rays / timed / 1e6, 3),
+                    launches=launches, nan_pixels=nan_px, nan_red_pixels=red,
+                    mean_radiance=mean, png=os.path.relpath(png_path, ROOT),
+                    peak_mem_gb=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+        if min(launches.values()) <= 0:
+            raise RuntimeError(f"the render did not launch every kernel: {launches}")
+        if nan_px or not mean > 0.0:
+            raise RuntimeError(f"bad image: {nan_px} NaN pixels, mean {mean}")
+        kernel_rows[0]["launches"] = launches["closest"]
+        kernel_rows[1]["launches"] = launches["occlusion"]
+
+        t0 = time.perf_counter()
+        main_cases = {}
+        for name, (args, kw, out_k) in captured.items():
+            out_p = wide.traverse_plain(kb.node_rows, kb.tri_rows, *args, group=kb.group_size,
+                                        arity=kb.arity, **kw)
+            main_cases[name] = compare("occlusion" if kw["occlusion"] else "closest",
+                                       out_k, out_p)
+            del out_p
+        info.update(main_path_cases=main_cases,
+                    main_path_check_s=round(time.perf_counter() - t0, 3))
+        for want in ("camera_wave", "bounce_wave", "shadow_wave"):
+            if want not in main_cases:
+                raise RuntimeError(f"the render launched no {want}: {sorted(main_cases)}")
+        bad = sum(v["mismatch"] for v in main_cases.values())
+        if bad:
+            raise RuntimeError(f"main-path kernel/plain mismatches beyond exact-t ties: {bad}")
+        for row, modes in ((kernel_rows[0], ("camera_wave", "bounce_wave", "alpha_retrace")),
+                           (kernel_rows[1], ("shadow_wave", "shadow_retrace"))):
+            errs = [main_cases[m]["max_abs_err"] for m in modes if m in main_cases]
+            row["max_abs_err"] = max([row["max_abs_err"], *errs])
+            row["main_path_rays_checked"] = sum(main_cases[m]["rays"] for m in modes
+                                                if m in main_cases)
+
+    with Phase("golden") as info:
+        box = write_box_scene(os.path.join(tmp.name, "box.gltf"))
+        cam = Camera.from_angles([1.5, 1.2, 2.0], float(np.arctan2(-1.5, -2.0)), -0.45)
+        rb = Renderer.from_gltf(box, config=RenderConfig(width=64, height=48, max_samples=8),
+                                camera=cam, device=dev,
+                                lights=[SphereLight((2.0, 2.0, 2.0), 0.3, (1.0, 0.9, 0.8), 50.0)])
+        img = rb.render(8).cpu().numpy()
+        golden = np.load(os.path.join(ROOT, "tests", "goldens", "box_64x48_8spp.npz"))["accum"]
+        err = film.rmse(img, golden)
+        info.update(rmse=err, within_1e_5=err < 1e-5)
+        if not err < 1e-3:
+            raise RuntimeError(f"box golden RMSE {err} above 1e-3")
+
+    tmp.cleanup()
+    print(nvidia_smi(), flush=True)
+    emit({"kernels": kernel_rows})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    timer.cancel()
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        code = main()
+    except Exception as e:  # any failing phase fails the run
+        emit({"error": f"{type(e).__name__}: {e}", "phase": _state["phase"]})
+        code = 1
+    sys.stdout.flush()
+    os._exit(code)

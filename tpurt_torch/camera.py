@@ -1,0 +1,111 @@
+"""Pinhole camera with frustum-corner ray generation (the counterpart of
+tpurt/camera.py). The arithmetic is written in tpurt's order, one
+elementwise operation at a time, so the CPU rays equal tpurt's to the
+last bit wherever both libraries round the same IEEE operations."""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from tpurt_torch import rng
+from tpurt_torch.kernels.bsdf import _cross, _norm
+
+
+class Camera(NamedTuple):
+    """World-space camera basis: position, unit direction, unit right."""
+
+    position: torch.Tensor   # (3,) f32
+    direction: torch.Tensor  # (3,) f32
+    right: torch.Tensor      # (3,) f32
+
+    @property
+    def up(self) -> torch.Tensor:
+        return _cross(self.direction, self.right)
+
+    def to(self, device) -> "Camera":
+        return Camera(*(x.to(device) for x in self))
+
+    @staticmethod
+    def default() -> "Camera":
+        return Camera(
+            position=torch.tensor([-2.0, 0.0, 1.0], dtype=torch.float32),
+            direction=torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32),
+            right=torch.tensor([0.0, 0.0, -1.0], dtype=torch.float32),
+        )
+
+    @staticmethod
+    def from_angles(position: Sequence[float], phi: float, theta: float) -> "Camera":
+        """Spherical-angle camera (phi = yaw, theta = pitch)."""
+        direction = np.array(
+            [math.cos(theta) * math.sin(phi), math.sin(theta), math.cos(theta) * math.cos(phi)],
+            dtype=np.float32,
+        )
+        right = np.array(
+            [math.sin(phi - math.pi * 0.5), 0.0, math.cos(phi - math.pi * 0.5)],
+            dtype=np.float32,
+        )
+        return Camera(
+            position=torch.as_tensor(np.asarray(position, np.float32)),
+            direction=torch.from_numpy(direction),
+            right=torch.from_numpy(right),
+        )
+
+
+def _frustum_rays(camera: Camera, pix: torch.Tensor, jx, jy, width: int,
+                  height: int, tan_half_fov) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one ray-generation formula (tpurt/camera.py::_frustum_rays):
+    jitter in [-0.5, 0.5]^2, then frustum-corner interpolation."""
+    px_i = (pix % width).to(torch.float32)
+    py_i = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
+    point_x = (px_i + jx - 0.5) / float(np.float32(width)) - 0.5
+    point_y = (py_i + jy - 0.5) / float(np.float32(height)) - 0.5
+    aspect = np.float32(width / height)
+    t = np.float32(tan_half_fov)
+    sx = float(np.float32(2.0) * t * aspect)
+    sy = float(np.float32(2.0) * t)
+    cam = camera.to(pix.device)
+    d = (
+        cam.direction[None, :]
+        + point_x[:, None] * sx * cam.right[None, :]
+        + point_y[:, None] * sy * cam.up[None, :]
+    )
+    d = d / _norm(d)[:, None]
+    o = cam.position[None, :].expand(pix.shape[0], 3)
+    return o, d
+
+
+def generate_rays(camera: Camera, width: int, height: int, tan_half_fov: float,
+                  state: torch.Tensor):
+    """One jittered primary ray per pixel from caller-provided RNG states
+    (row-major pixel order). Returns (origins, directions, new state)."""
+    n = width * height
+    pix = torch.arange(n, dtype=torch.int64, device=state.device)
+    state, jx, jy = rng.next_uniform2(state)
+    o, d = _frustum_rays(camera, pix, jx, jy, width, height, tan_half_fov)
+    return o, d, state
+
+
+def camera_rays_for_rows(camera: Camera, row_start: int, rows: int, width: int,
+                         height: int, tan_half_fov, sample_index: int, seed: int,
+                         spp: int = 1, device="cuda"):
+    """Jittered primary rays for a band of image rows; with spp > 1 the
+    batch holds `spp` replicas of the band at sample indices
+    sample_index * spp + j. Returns (origins, directions, rng state)."""
+    n = rows * width
+    pix = torch.arange(n, dtype=torch.int64, device=device) + int(row_start) * width
+    if spp > 1:
+        pix = pix.repeat(spp)
+        sample_vec = torch.repeat_interleave(
+            (int(sample_index) * spp + torch.arange(spp, dtype=torch.int64,
+                                                     device=device)) & rng._MASK, n)
+    else:
+        sample_vec = int(sample_index)
+    state = rng.init_state(pix, sample_vec, seed)
+    state, jx = rng.next_rand(state)
+    state, jy = rng.next_rand(state)
+    o, d = _frustum_rays(camera, pix, jx, jy, width, height, tan_half_fov)
+    return o, d, state

@@ -1,0 +1,51 @@
+"""Carry tpurt's device structures across to the port.
+
+`scene_from_numpy` and `wide_bvh_from_numpy` take the fields of tpurt's
+`DeviceScene` and `WideKernelBVH` as numpy arrays (so this module needs
+neither JAX nor tpurt) and build the port's structures on `device`. The
+tests use them to feed both packages identical tables.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from tpurt_torch.bvh.lbvh import LBVH, TriBVH
+from tpurt_torch.kernels.wide import MAX_STACK, WideKernelBVH, _stack_bound, collapse_to_wide
+from tpurt_torch.scene.device import DeviceScene, Materials
+
+
+def _dev(x, device):
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def scene_from_numpy(arrays: Mapping[str, object], device="cuda") -> DeviceScene:
+    """`arrays` holds every DeviceScene field by name; `materials` is a
+    mapping of the Materials fields."""
+    mats = arrays["materials"]
+    fields = {k: _dev(arrays[k], device) for k in DeviceScene._fields if k != "materials"}
+    return DeviceScene(materials=Materials(**{k: _dev(mats[k], device)
+                                              for k in Materials._fields}),
+                       **fields)
+
+
+def wide_bvh_from_numpy(arrays: Mapping[str, object], device="cuda") -> WideKernelBVH:
+    """`arrays` holds node_rows, tri_rows, tri_pos, arity and the TriBVH
+    fields: tri_order plus the LBVH fields (left, right, node_min,
+    node_max, leaf_prim, first, skip)."""
+    bvh = LBVH(**{k: np.asarray(arrays[k]) for k in LBVH._fields})
+    tribvh = TriBVH(bvh=bvh, tri_order=np.asarray(arrays["tri_order"]))
+    arity = int(arrays["arity"])
+    child, wide_of = collapse_to_wide(tribvh, arity)
+    bound = _stack_bound(child, wide_of, bvh.num_internal)
+    if bound > MAX_STACK:
+        raise ValueError(f"stack bound {bound} exceeds {MAX_STACK}")
+    return WideKernelBVH(
+        tribvh=tribvh,
+        node_rows=_dev(np.asarray(arrays["node_rows"], np.float32), device),
+        tri_rows=_dev(np.asarray(arrays["tri_rows"], np.float32), device),
+        tri_pos=_dev(np.asarray(arrays["tri_pos"], np.float32), device),
+        arity=arity, stack_bound=bound)

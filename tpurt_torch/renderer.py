@@ -1,0 +1,149 @@
+"""Progressive renderer: scene, BVH, integrator and film tied together
+(the counterpart of tpurt/renderer.py).
+
+It owns the accumulation buffer and the sample counter, resets on a
+camera change, and prints the reference's convergence line once the
+sample target is reached. The wide traversal tables are always built,
+on every device: the CPU runs the same traversal through the kernel's
+plain version. The scene cache and checkpoints come in a later slice.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from tpurt_torch import film
+from tpurt_torch.bvh.lbvh import build_triangle_bvh
+from tpurt_torch.camera import Camera
+from tpurt_torch.config import RenderConfig, SphereLight
+from tpurt_torch.integrator.wavefront import RayStats, render_sample
+from tpurt_torch.kernels import wide
+from tpurt_torch.kernels.wide import collapse_to_wide, make_wide_kernel_bvh, pick_group_size_wide
+from tpurt_torch.runtime.device import resolve_device
+from tpurt_torch.scene.device import DeviceScene, build_device_scene
+from tpurt_torch.scene.gltf import camera_for_render, load_gltf
+from tpurt_torch.scene.types import NO_TEXTURE, SceneData
+
+
+class Renderer:
+    def __init__(self, scene: SceneData, config: RenderConfig = RenderConfig(),
+                 lights: Sequence[SphereLight] = (), camera: Optional[Camera] = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.config = config
+        self.timings = {}
+        t0 = time.perf_counter()
+        self.device_scene: DeviceScene = build_device_scene(scene, lights=lights,
+                                                            device=self.device)
+        self.timings["device_scene_s"] = time.perf_counter() - t0
+        self.camera = (camera or camera_for_render(scene.camera)).to(self.device)
+        ds = self.device_scene
+        self.has_alpha = bool(ds.tri_alpha.any())
+        mats = ds.materials
+        self.tex_flags = tuple(bool((t != NO_TEXTURE).any()) for t in
+                               (mats.tex_albedo, mats.tex_mr, mats.tex_normal,
+                                mats.tex_emissive))
+        tri_np = ds.tri_pos.cpu().numpy()
+        t0 = time.perf_counter()
+        tribvh = build_triangle_bvh(tri_np, group_size=pick_group_size_wide(tri_np.shape[0]))
+        self.timings["sah_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        collapse = collapse_to_wide(tribvh)
+        self.timings["collapse_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.bvh = make_wide_kernel_bvh(
+            tribvh, tri_np,
+            tri_alpha_mask=ds.tri_alpha_mask if self.has_alpha else None,
+            tri_alpha_opaque=ds.tri_alpha_opaque if self.has_alpha else None,
+            device=self.device, collapse=collapse)
+        self.timings["pack_s"] = time.perf_counter() - t0
+        self.last_stats = RayStats(0.0, 0.0)
+        self.reset()
+
+    @classmethod
+    def from_gltf(cls, paths, config: RenderConfig = RenderConfig(),
+                  lights: Sequence[SphereLight] = (), camera: Optional[Camera] = None,
+                  device="cuda") -> "Renderer":
+        """Load a glTF/GLB scene and build the renderer on `device`."""
+        resolve_device(device)
+        t0 = time.perf_counter()
+        scene = load_gltf(paths)
+        load_s = time.perf_counter() - t0
+        r = cls(scene, config=config, lights=lights, camera=camera, device=device)
+        r.timings["gltf_load_s"] = load_s
+        return r
+
+    # ---- progressive accumulation ------------------------------------------
+
+    def reset(self) -> None:
+        cfg = self.config
+        self.accum = torch.zeros((cfg.height, cfg.width, 4), dtype=torch.float32,
+                                 device=self.device)
+        self.sample_count = 0
+        self.sample_time = 0.0
+        self.rays = RayStats(0.0, 0.0)
+        self._converged_reported = False
+
+    def set_camera(self, camera: Camera) -> None:
+        """Any camera change resets accumulation."""
+        self.camera = camera.to(self.device)
+        self.reset()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def step(self) -> torch.Tensor:
+        """One launch of cfg.spp_per_launch samples per pixel; returns the
+        accumulation buffer."""
+        cfg = self.config
+        if self.sample_count >= cfg.max_samples:
+            self._finish()
+            return self.accum
+        t0 = time.perf_counter()
+        spp = cfg.spp_per_launch
+        launch_index = self.sample_count // spp
+        radiance, stats = render_sample(
+            self.device_scene, self.bvh, self.camera, launch_index,
+            width=cfg.width, height=cfg.height, cfg=cfg, has_alpha=self.has_alpha,
+            chunk_rows=cfg.chunk_rows, tex_flags=self.tex_flags, return_stats=True)
+        self.sample_count += spp
+        self.accum = film.accumulate(self.accum, radiance, launch_index + 1)
+        self._sync()
+        wide.check_kernel_errors(self.device)
+        self.sample_time += time.perf_counter() - t0
+        self.last_stats = stats
+        self.rays = RayStats(self.rays.logical + stats.logical,
+                             self.rays.physical + stats.physical)
+        if self.sample_count >= cfg.max_samples:
+            self._finish()
+        return self.accum
+
+    def _finish(self) -> None:
+        if not self._converged_reported:
+            print("Max. sample count reached. Time=%f s" % self.sample_time)
+            self._converged_reported = True
+
+    def render(self, spp: Optional[int] = None, progress_every: int = 0) -> torch.Tensor:
+        """Accumulate `spp` samples (default: config.max_samples)."""
+        target = spp if spp is not None else self.config.max_samples
+        while self.sample_count < min(target, self.config.max_samples):
+            self.step()
+            if progress_every and self.sample_count % progress_every == 0:
+                print(f"  {self.sample_count}/{target} spp, {self.sample_time:.2f}s")
+        return self.accum
+
+    # ---- output ---------------------------------------------------------------
+
+    def tonemapped(self) -> torch.Tensor:
+        return film.tonemap(self.accum, self.config.exposure)
+
+    def save_png(self, path: str) -> None:
+        film.save_png(path, self.tonemapped())
+
+    def image(self) -> np.ndarray:
+        return self.accum.detach().cpu().numpy()
