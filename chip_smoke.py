@@ -6,14 +6,22 @@
 Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
 
   device   card name, power limit, torch version; no card is an error
-  build    nvcc the traversal kernel and g++ the native host core, together
+  build    nvcc both CUDA sources (wide_traverse.cu, rope_traverse.cu) and
+           g++ the native host core, all at once
   scene    write the bench's Sponza-like scene (~215k triangles), load it,
            build the renderer at 1920x1080 on the card, time each host step
   kernels  hold K1 (closest hit: 65,536 camera rays, 65,536 bounce rays with
            cell masks) and K2 (occlusion: 65,536 shadow rays to the three
            lights) against their plain PyTorch versions on the same inputs:
            t bit-equal wherever prim agrees, prim different only on exact-t
-           ties, pending and blocked equal; CUDA-event timings of both
+           ties, pending and blocked equal; CUDA-event timings of both.
+           Then K3 (rope closest hit) and K4 (rope occlusion) on the same
+           three batches, over the rope tables of the same G=8 TriBVH with
+           the mask column, against their plain versions by the same rule
+           (u, v bit-equal too), and across: K3 against K1 (same cell
+           rejection) and K4 against K2 (tables without masks, once with
+           every hit definite and once with none), equal t, prim only on
+           ties, blocked equal
   render   Renderer.render at 1920x1080: 1 warm-up and 2 timed samples,
            with the kernel launch counters zeroed just before; NaN pixels
            must be 0, the mean radiance > 0; the PNG goes to smoke_out/.
@@ -21,6 +29,15 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            first camera wave, bounce wave, alpha re-trace, shadow wave and
            shadow re-trace it launches; after the timed samples each is
            held against the plain version with the rule of `kernels`
+  rope     the rope path: Renderer(..., bvh=build_triangle_bvh(tri, 8)) on
+           the same scene, camera and lights, 1 warm-up and 2 timed samples
+           with every launch counter zeroed just before; K3 must launch, K1,
+           K2 and K4 must not. The warm-up's first camera and bounce waves
+           are held against rope.traverse_plain; the image against the
+           `render` phase's (same seed and samples) by RMSE, bound
+           ROPE_VS_WIDE_RMSE. Then K4's own path, rope.occlusion_packets on
+           the frame's 2,073,600 shadow rays (camera hits to the lights),
+           counted and held against the plain version
   golden   the box golden (64x48, 8 spp) rendered on the card, RMSE against
            tests/goldens/box_64x48_8spp.npz (fail above 1e-3)
 
@@ -61,6 +78,9 @@ PEAK_BYTES = 3.35e12
 # triangle ~60 (edges, cross products, det, reciprocal, u, v, t, tests)
 OPS_PER_BOX = 25
 OPS_PER_TRIANGLE = 60
+# rope vs wide render of the same frame: the two paths run the same
+# arithmetic and differ only where an exact-t tie picks another triangle
+ROPE_VS_WIDE_RMSE = 1e-5
 
 _state = {"phase": "start"}
 
@@ -141,6 +161,60 @@ def compare(kind, k, p):
             "mismatch": int(bad.sum()), "max_abs_err": err}
 
 
+def compare_rope(kind, k, p):
+    """compare() for the rope kernels' (t, prim, u, v, blocked), with u and
+    v bit-equal wherever prim agrees."""
+    import torch
+
+    out = compare(kind, (k[0], k[1], k[4]), (p[0], p[1], p[4]))
+    same = k[1] == p[1]
+    uv_bad = same & ((k[2].view(torch.int32) != p[2].view(torch.int32))
+                     | (k[3].view(torch.int32) != p[3].view(torch.int32)))
+    out["mismatch"] += int(uv_bad.sum())
+    return out
+
+
+def rope_bound(stats, n, row_width, group):
+    """bound() for the rope walk: one box test per step, G triangle tests
+    per leaf whose box is hit; rays read once (o, d, t_min, t_limit,
+    active: 33 B) and results written once (20 B), each 32 B node row
+    and each leaf row read once."""
+    ops = (float(stats["node_visits"].sum()) * OPS_PER_BOX
+           + float(stats["leaf_visits"].sum()) * group * OPS_PER_TRIANGLE)
+    nbytes = (n * (33 + 20) + stats["node_rows_read"] * 8 * 4
+              + stats["leaf_rows_read"] * row_width * 4)
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
+def zero_launch_counts():
+    from tpurt_torch.kernels import wide
+    from tpurt_torch.kernels.experimental import rope
+
+    for counts in (wide.LAUNCHES, rope.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def launch_counts():
+    from tpurt_torch.kernels import wide
+    from tpurt_torch.kernels.experimental import rope
+
+    return {**wide.LAUNCHES, **rope.LAUNCHES}
+
+
+def timed_pair(kern, plain):
+    """Median CUDA-event ms of the kernel and of its plain version, REPS
+    each, in turns: plain, kernel, kernel, plain, ..."""
+    k_ms, p_ms = [], []
+    for i in range(REPS):
+        order = (plain, kern) if i % 2 == 0 else (kern, plain)
+        for fn in order:
+            ms, _ = cuda_ms(fn)
+            (p_ms if fn is plain else k_ms).append(ms)
+    return median(k_ms), median(p_ms)
+
+
 def bound(stats, n, row_width, group):
     """Least time for the work this batch needed: the larger of the float
     operations (the box and triangle tests the plain traversal counted)
@@ -175,13 +249,16 @@ def main():
     import numpy as np
 
     from tpurt_torch import film, native
+    from tpurt_torch.bvh.lbvh import build_triangle_bvh
     from tpurt_torch.bvh.traverse import _octant_morton_key
     from tpurt_torch.camera import Camera, camera_rays_for_rows
     from tpurt_torch.config import RenderConfig, SphereLight
-    from tpurt_torch.kernels import wide
+    from tpurt_torch.kernels import cudalib, wide
     from tpurt_torch.kernels.bsdf import _cross, _dot, _normalize
+    from tpurt_torch.kernels.experimental import rope
     from tpurt_torch.kernels.intersect import intersect_spheres
     from tpurt_torch.renderer import Renderer
+    from tpurt_torch.scene.gltf import load_gltf
     from tpurt_torch.scene.procedural import write_box_scene, write_sponza_like_scene
 
     dev = torch.device("cuda", 0)
@@ -197,8 +274,11 @@ def main():
                 errors.append(f"{name}: {e}")
             times[name] = round(time.perf_counter() - t0, 3)
 
-        threads = [threading.Thread(target=run, args=("nvcc_wide_traverse",
-                                                      wide.build_kernel_library)),
+        def nvcc(name):
+            return lambda force: cudalib.build(name, force=force)
+
+        threads = [threading.Thread(target=run, args=("nvcc_wide_traverse", nvcc("wide_traverse"))),
+                   threading.Thread(target=run, args=("nvcc_rope_traverse", nvcc("rope_traverse"))),
                    threading.Thread(target=run, args=("gxx_native", native.build))]
         for t in threads:
             t.start()
@@ -289,17 +369,12 @@ def main():
 
             out_k = kern()
             out_p = plain()
-            wide.check_kernel_errors(dev)
+            cudalib.check_kernel_errors(dev)
             cmp = compare(mode, out_k, out_p)
             b_ms, b_by, ops, nbytes = bound(stats, N_RAYS, kb.tri_rows.shape[1],
                                             kb.group_size)
-            k_ms, p_ms = [], []
-            for i in range(REPS):  # in turns: plain, kernel, kernel, plain, ...
-                order = (plain, kern) if i % 2 == 0 else (kern, plain)
-                for fn in order:
-                    ms, _ = cuda_ms(fn)
-                    (p_ms if fn is plain else k_ms).append(ms)
-            results[name] = dict(mode=mode, ms=median(k_ms), plain_ms=median(p_ms),
+            k_ms, p_ms = timed_pair(kern, plain)
+            results[name] = dict(mode=mode, ms=k_ms, plain_ms=p_ms,
                                  bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
                                  node_visits_per_ray=float(stats["node_visits"].float().mean()),
                                  leaf_visits_per_ray=float(stats["leaf_visits"].float().mean()),
@@ -312,12 +387,12 @@ def main():
         if results["bounce"]["flag_set"] == 0:
             raise RuntimeError("no pending hit in the bounce batch: cell masks not exercised")
 
-        def entry(name, replaces, names):
-            sel = [results[c] for c in names]
+        def entry(name, replaces, names, res=results, source="tpurt_torch/csrc/wide_traverse.cu"):
+            sel = [res[c] for c in names]
             by_ops = sum(x["ops"] for x in sel) / PEAK_F32
             by_bytes = sum(x["bytes"] for x in sel) / PEAK_BYTES
             return {"name": name, "route": "cuda",
-                    "source": "tpurt_torch/csrc/wide_traverse.cu",
+                    "source": source,
                     "replaces": replaces, "launches": 0,
                     "max_abs_err": max(x["max_abs_err"] for x in sel),
                     "ms": sum(x["ms"] for x in sel),
@@ -330,6 +405,80 @@ def main():
             entry("K1 wide closest hit", "tpurt/kernels/pallas_wide.py:1500", ["camera", "bounce"]),
             entry("K2 wide occlusion", "tpurt/kernels/pallas_wide.py:1500", ["shadow"]),
         ]
+
+        # ---- K3 / K4 over the rope tables of the same tree, mask column on
+        tri_np = ds.tri_pos.cpu().numpy()
+        rk = rope.make_kernel_bvh(kb.tribvh, tri_np, ds.tri_alpha_mask, device=dev)
+        if not rk.use_masks:
+            raise RuntimeError("the rope tables carry no mask column: masks not exercised")
+        ones = torch.ones(N_RAYS, dtype=torch.bool, device=dev)
+        rope_results = {}
+        for name, mode, o, d, tl, _ in cases:
+            kw = dict(occlusion=mode == "occlusion", all_definite=not r.has_alpha)
+
+            def kern():
+                return rope.traverse_cuda(rk, o, d, zeros, tl, ones, **kw)
+
+            stats = {}
+
+            def plain(stats=stats):
+                return rope.traverse_plain(rk.node_rows, rk.tri_rows, o, d, zeros, tl, ones,
+                                           n_internal=rk.n_internal, group=rk.group_size,
+                                           stats=stats, **kw)
+
+            out_k = kern()
+            out_p = plain()
+            cudalib.check_kernel_errors(dev)
+            cmp = compare_rope(mode, out_k, out_p)
+            b_ms, b_by, ops, nbytes = rope_bound(stats, N_RAYS, rk.tri_rows.shape[1],
+                                                 rk.group_size)
+            k_ms, p_ms = timed_pair(kern, plain)
+            rope_results[name] = dict(mode=mode, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                      bound_by=b_by, ops=ops, bytes=nbytes,
+                                      steps_per_ray=float(stats["node_visits"].float().mean()),
+                                      leaf_tests_per_ray=float(stats["leaf_visits"].float().mean()),
+                                      **cmp)
+        info.update(rope_cases=rope_results)
+
+        # across: K3 against K1 with the same cell rejection; K4 against K2
+        # over tables without masks, where the answer does not depend on the
+        # walk's order (every hit definite: the blocked set; none definite:
+        # the closest hit below t_limit)
+        across = {}
+        for name, _, o, d, _, _ in cases[:2]:
+            t1, p1, _, _, _ = wide.traverse_packets(kb, o, d, zeros, 1e9, ones, cell_masks=True)
+            t3, p3, _, _ = rope.traverse_packets(rk, o, d, zeros, 1e9, ones)
+            across[f"K3_vs_K1_{name}"] = compare("closest", (t3, p3, zeros), (t1, p1, zeros))
+        _, _, o, d, tl, _ = cases[2]
+        kb0 = wide.make_wide_kernel_bvh(kb.tribvh, tri_np, device=dev)
+        rk0 = rope.make_kernel_bvh(kb.tribvh, tri_np, device=dev)
+        for alpha in (False, True):
+            b2, t2, p2, _, _ = wide.occlusion_packets(kb0, o, d, zeros, tl, ones, alpha)
+            b4, t4, p4, _, _ = rope.occlusion_packets(rk0, o, d, zeros, tl, ones, alpha)
+            f2, f4 = b2.float(), b4.float()
+            if alpha:  # no hit definite: nothing blocks, the closest hit is the answer
+                across["K4_vs_K2_none_definite"] = compare("occlusion", (t4, p4, f4), (t2, p2, f2))
+            else:
+                across["K4_vs_K2_all_definite"] = {
+                    "rays": N_RAYS, "blocked": int(b4.sum()),
+                    "mismatch": int((b2 != b4).sum()), "max_abs_err": 0.0}
+        cudalib.check_kernel_errors(dev)
+        info.update(rope_across=across)
+        bad = (sum(v["mismatch"] for v in rope_results.values())
+               + sum(v["mismatch"] for v in across.values()))
+        if bad:
+            raise RuntimeError(f"rope kernel mismatches beyond exact-t ties: {bad}")
+        if rope_results["shadow"]["flag_set"] == 0:
+            raise RuntimeError("no blocked ray in the K4 shadow batch")
+        kernel_rows += [
+            entry("K3 rope closest hit", "tpurt/kernels/experimental/pallas_traverse.py:215",
+                  ["camera", "bounce"], rope_results, "tpurt_torch/csrc/rope_traverse.cu"),
+            entry("K4 rope occlusion", "tpurt/kernels/experimental/pallas_traverse.py:451",
+                  ["shadow"], rope_results, "tpurt_torch/csrc/rope_traverse.cu"),
+        ]
+        for row in kernel_rows[2:]:
+            row["max_abs_err"] = max([row["max_abs_err"]]
+                                     + [v["max_abs_err"] for v in across.values()])
 
     with Phase("render") as info:
         # during the warm-up sample, keep the first launch of each kind of
@@ -352,8 +501,7 @@ def main():
                                   kw, tuple(x.clone() for x in out))
             return out
 
-        for k in wide.LAUNCHES:
-            wide.LAUNCHES[k] = 0
+        zero_launch_counts()
         wide.traverse_cuda = capture
         try:
             t0 = time.perf_counter()
@@ -367,7 +515,7 @@ def main():
         r.render(3)
         torch.cuda.synchronize()
         timed = time.perf_counter() - t0
-        launches = dict(wide.LAUNCHES)
+        launches = launch_counts()
         rays = r.rays.physical - r0
         accum = r.accum
         nan_px = int(torch.isnan(accum).any(dim=-1).sum())
@@ -380,8 +528,9 @@ def main():
                     launches=launches, nan_pixels=nan_px, nan_red_pixels=red,
                     mean_radiance=mean, png=os.path.relpath(png_path, ROOT),
                     peak_mem_gb=round(torch.cuda.max_memory_allocated() / 2**30, 2))
-        if min(launches.values()) <= 0:
-            raise RuntimeError(f"the render did not launch every kernel: {launches}")
+        if min(launches["closest"], launches["occlusion"]) <= 0 or launches["rope_closest"] \
+                or launches["rope_occlusion"]:
+            raise RuntimeError(f"the wide render did not launch K1 and K2 alone: {launches}")
         if nan_px or not mean > 0.0:
             raise RuntimeError(f"bad image: {nan_px} NaN pixels, mean {mean}")
         kernel_rows[0]["launches"] = launches["closest"]
@@ -409,6 +558,126 @@ def main():
             row["max_abs_err"] = max([row["max_abs_err"], *errs])
             row["main_path_rays_checked"] = sum(main_cases[m]["rays"] for m in modes
                                                 if m in main_cases)
+
+    with Phase("rope") as info:
+        wide_img = accum.cpu().numpy()
+        del captured, accum
+        t0 = time.perf_counter()
+        scene = load_gltf(path)
+        tri = r.device_scene.tri_pos.cpu().numpy()
+        rr = Renderer(scene, config=cfg, camera=camera, lights=lights, device=dev,
+                      bvh=build_triangle_bvh(tri, group_size=8))
+        setup_s = time.perf_counter() - t0
+        if not isinstance(rr.bvh, rope.KernelBVH):
+            raise RuntimeError(f"bvh=<TriBVH> did not take the rope path: {type(rr.bvh)}")
+        # during the warm-up sample keep the K3 launch of the first camera
+        # wave and of the first bounce wave (the first trace with spheres)
+        import tpurt_torch.bvh.traverse as traverse_mod
+
+        captured, wanted = {}, []
+        scene_walk, launch = traverse_mod.intersect_scene, rope.traverse_cuda
+
+        def walk(bvh, tri_pos, lights_, o, d, t_min, t_max, include_spheres=True, active=None):
+            fresh = not bool((t_min != 0).any())
+            name = "bounce_wave" if include_spheres else "camera_wave"
+            wanted.append(name if fresh and name not in captured else None)
+            try:
+                return scene_walk(bvh, tri_pos, lights_, o, d, t_min, t_max,
+                                  include_spheres=include_spheres, active=active)
+            finally:
+                wanted.pop()
+
+        def capture(kbvh, o, d, t_min, t_limit, active, **kw):
+            out = launch(kbvh, o, d, t_min, t_limit, active, **kw)
+            if wanted and wanted[-1] and wanted[-1] not in captured:
+                captured[wanted[-1]] = ((o.clone(), d.clone(), t_min.clone(), t_limit.clone(),
+                                         active.clone()), kw, tuple(x.clone() for x in out))
+            return out
+
+        zero_launch_counts()
+        traverse_mod.intersect_scene, rope.traverse_cuda = walk, capture
+        try:
+            t0 = time.perf_counter()
+            rr.render(1)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+        finally:
+            traverse_mod.intersect_scene, rope.traverse_cuda = scene_walk, launch
+        r0 = rr.rays.physical
+        t0 = time.perf_counter()
+        rr.render(3)
+        torch.cuda.synchronize()
+        timed = time.perf_counter() - t0
+        launches = launch_counts()
+        rays = rr.rays.physical - r0
+        img = rr.accum.cpu().numpy()
+        nan_px = int(np.isnan(img).any(axis=-1).sum())
+        rmse_wide = film.rmse(img, wide_img)
+        png_path = os.path.join(OUT_DIR, "sponza_1080p_3spp_rope.png")
+        rr.save_png(png_path)
+        info.update(setup_s=round(setup_s, 3), warmup_s=round(warm, 3),
+                    seconds_per_sample=round(timed / 2, 3), rays_physical_2spp=rays,
+                    rays_per_sample=rays / 2, mrays_per_s=round(rays / timed / 1e6, 3),
+                    launches=launches, nan_pixels=nan_px, rmse_vs_wide=rmse_wide,
+                    rmse_bound=ROPE_VS_WIDE_RMSE, png=os.path.relpath(png_path, ROOT),
+                    peak_mem_gb=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+        if launches["rope_closest"] <= 0 or launches["rope_occlusion"] or launches["closest"] \
+                or launches["occlusion"]:
+            raise RuntimeError(f"the rope render did not launch K3 alone: {launches}")
+        if nan_px or not rmse_wide <= ROPE_VS_WIDE_RMSE:
+            raise RuntimeError(f"rope image: {nan_px} NaN pixels, RMSE {rmse_wide} against "
+                               f"the wide render (bound {ROPE_VS_WIDE_RMSE})")
+        kernel_rows[2]["launches"] = launches["rope_closest"]
+
+        t0 = time.perf_counter()
+        rt = rr.bvh
+        main_cases = {}
+        for name, (args, kw, out_k) in captured.items():
+            out_p = rope.traverse_plain(rt.node_rows, rt.tri_rows, *args,
+                                        n_internal=rt.n_internal, group=rt.group_size, **kw)
+            main_cases[name] = compare_rope("closest", out_k, out_p)
+        if sorted(main_cases) != ["bounce_wave", "camera_wave"]:
+            raise RuntimeError(f"the rope render's waves were not captured: {sorted(main_cases)}")
+
+        # K4's own path: rope.occlusion_packets on the frame's shadow rays,
+        # from the camera wave's hits to the lights in turn, masks on
+        (o_c, d_c, _, _, _), _, (t_c, s_c, _, _, _) = captured["camera_wave"]
+        del captured
+        n = o_c.shape[0]
+        hit = s_c >= 0
+        p_hit = o_c + torch.where(hit, t_c, torch.zeros_like(t_c))[:, None] * d_c
+        org = (p_hit - 0.01 * d_c).contiguous()
+        lp = torch.tensor([l.position for l in lights], dtype=torch.float32, device=dev)
+        d_s = _normalize(lp[torch.arange(n, device=dev) % len(lights)] - org).contiguous()
+        z = torch.zeros(n, dtype=torch.float32, device=dev)
+        s_hit, s_t, _ = intersect_spheres(org, d_s, ds.lights, z, 1e9)
+        t_lim = torch.where(s_hit, s_t, torch.full_like(s_t, 1e9)).contiguous()
+        act = hit.contiguous()
+        zero_launch_counts()
+        out_k = rope.occlusion_packets(rk, org, d_s, z, t_lim, act, True)
+        torch.cuda.synchronize()
+        harness = launch_counts()
+        if harness["rope_occlusion"] <= 0 or sum(harness.values()) != harness["rope_occlusion"]:
+            raise RuntimeError(f"rope.occlusion_packets did not launch K4 alone: {harness}")
+        kernel_rows[3]["launches"] = harness["rope_occlusion"]
+        out_p = rope.traverse_plain(rk.node_rows, rk.tri_rows, org, d_s, z, t_lim, act,
+                                    n_internal=rk.n_internal, group=rk.group_size,
+                                    occlusion=True, all_definite=False)
+        blocked_k, t_k, p_k, u_k, v_k = out_k
+        main_cases["k4_shadow_frame"] = compare_rope(
+            "occlusion", (t_k, p_k, u_k, v_k, blocked_k.float()),
+            (out_p[0], rope.original_ids(rk, out_p[1]), out_p[2], out_p[3], out_p[4]))
+        cudalib.check_kernel_errors(dev)
+        info.update(main_path_cases=main_cases, k4_launches=harness["rope_occlusion"],
+                    main_path_check_s=round(time.perf_counter() - t0, 3))
+        bad = sum(v["mismatch"] for v in main_cases.values())
+        if bad:
+            raise RuntimeError(f"rope main-path kernel/plain mismatches beyond exact-t ties: {bad}")
+        for row, modes in ((kernel_rows[2], ("camera_wave", "bounce_wave")),
+                           (kernel_rows[3], ("k4_shadow_frame",))):
+            row["max_abs_err"] = max([row["max_abs_err"]]
+                                     + [main_cases[m]["max_abs_err"] for m in modes])
+            row["main_path_rays_checked"] = sum(main_cases[m]["rays"] for m in modes)
 
     with Phase("golden") as info:
         box = write_box_scene(os.path.join(tmp.name, "box.gltf"))

@@ -28,6 +28,8 @@ def _all_modules():
 def test_every_module_imports_without_jax_tpurt_pil_ml_dtypes():
     mods = _all_modules()
     assert "tpurt_torch.kernels.wide" in mods and "tpurt_torch.integrator.wavefront" in mods
+    assert {"tpurt_torch.kernels.experimental.rope", "tpurt_torch.kernels.cudalib",
+            "tpurt_torch.kernels.experimental"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"mods = {mods!r}\n"
@@ -68,6 +70,8 @@ def test_no_module_source_mentions_forbidden_imports():
     "tpurt_torch.camera:camera_rays_for_rows",
     "tpurt_torch.convert:scene_from_numpy",
     "tpurt_torch.convert:wide_bvh_from_numpy",
+    "tpurt_torch.convert:kernel_bvh_from_tpurt",
+    "tpurt_torch.kernels.experimental.rope:make_kernel_bvh",
     "tpurt_torch.runtime.device:resolve_device",
 ])
 def test_entry_points_default_to_cuda(fn):
@@ -92,12 +96,13 @@ def test_cuda_without_a_card_raises_instead_of_falling_back():
 
 
 def test_kernel_wrapper_routes_cpu_tensors_to_the_plain_version():
-    """A CPU tensor takes the plain traversal and leaves the kernel's launch
-    counters alone."""
+    """A CPU tensor takes the plain traversal and leaves the kernels' launch
+    counters alone (wide K1, rope K3/K4)."""
     import numpy as np
 
     from tpurt_torch.bvh.lbvh import build_triangle_bvh
     from tpurt_torch.kernels import wide
+    from tpurt_torch.kernels.experimental import rope
 
     r = np.random.RandomState(0)
     tris = ((r.rand(40, 1, 3) - 0.5) * 6 + (r.rand(40, 3, 3) - 0.5)).astype(np.float32)
@@ -109,3 +114,11 @@ def test_kernel_wrapper_routes_cpu_tensors_to_the_plain_version():
                                           torch.ones(64, dtype=torch.bool))
     assert wide.LAUNCHES == before
     assert t.shape == (64,) and prim.dtype == torch.int32
+    rk = rope.make_kernel_bvh(kb.tribvh, tris, device="cpu")
+    before = dict(rope.LAUNCHES)
+    t3, prim3, _, _ = rope.traverse_packets(rk, o, d, torch.zeros(64), 1e9,
+                                           torch.ones(64, dtype=torch.bool))
+    b4, _, _, _, _ = rope.occlusion_packets(rk, o, d, torch.zeros(64), torch.full((64,), 1e9),
+                                            torch.ones(64, dtype=torch.bool), False)
+    assert rope.LAUNCHES == before
+    assert torch.equal(t3, t) and b4.dtype == torch.bool

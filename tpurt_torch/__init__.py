@@ -1,10 +1,11 @@
 """tpurt_torch — the PyTorch/CUDA port of tpurt.
 
 The same progressive path tracer as `tpurt/`, written for an NVIDIA
-Hopper card: plain tensor code is PyTorch, and the one traversal kernel
-on the render path (closest hit and occlusion over the 16-ary wide BVH)
-is hand-written CUDA C++ in `csrc/wide_traverse.cu`, built with nvcc on
-first use and bound through ctypes.
+Hopper card: plain tensor code is PyTorch, and the traversal kernels are
+hand-written CUDA C++, built with nvcc on first use and bound through
+ctypes: closest hit and occlusion over the 16-ary wide BVH
+(`csrc/wide_traverse.cu`, the default render path) and over the binary
+rope BVH (`csrc/rope_traverse.cu`, the rope path, `Renderer(bvh=<TriBVH>)`).
 
 Module names mirror `tpurt/` so each module's counterpart is easy to
 find. Entry points take a `device` argument that defaults to "cuda";

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from tpurt_torch import rng
-from tpurt_torch.kernels.bsdf import _cross, _norm
+from tpurt_torch.kernels.bsdf import _cross, _norm, recip32
 
 
 class Camera(NamedTuple):
@@ -61,8 +61,10 @@ def _frustum_rays(camera: Camera, pix: torch.Tensor, jx, jy, width: int,
     jitter in [-0.5, 0.5]^2, then frustum-corner interpolation."""
     px_i = (pix % width).to(torch.float32)
     py_i = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
-    point_x = (px_i + jx - 0.5) / float(np.float32(width)) - 0.5
-    point_y = (py_i + jy - 0.5) / float(np.float32(height)) - 0.5
+    # tpurt divides by the image size; its compiled program multiplies by
+    # the float32 reciprocal (recip32)
+    point_x = (px_i + jx - 0.5) * recip32(width) - 0.5
+    point_y = (py_i + jy - 0.5) * recip32(height) - 0.5
     aspect = np.float32(width / height)
     t = np.float32(tan_half_fov)
     sx = float(np.float32(2.0) * t * aspect)

@@ -1,9 +1,10 @@
 """Carry tpurt's device structures across to the port.
 
-`scene_from_numpy` and `wide_bvh_from_numpy` take the fields of tpurt's
-`DeviceScene` and `WideKernelBVH` as numpy arrays (so this module needs
-neither JAX nor tpurt) and build the port's structures on `device`. The
-tests use them to feed both packages identical tables.
+`scene_from_numpy`, `wide_bvh_from_numpy`, `tribvh_from_tpurt` and
+`kernel_bvh_from_tpurt` take the fields of tpurt's `DeviceScene`,
+`WideKernelBVH`, `TriBVH` and rope `KernelBVH` as numpy arrays (so this
+module needs neither JAX nor tpurt) and build the port's structures. The
+tests use them to feed both packages the same tree and tables.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from tpurt_torch.bvh.lbvh import LBVH, TriBVH
+from tpurt_torch.kernels.experimental.rope import KernelBVH
 from tpurt_torch.kernels.wide import MAX_STACK, WideKernelBVH, _stack_bound, collapse_to_wide
 from tpurt_torch.scene.device import DeviceScene, Materials
 
@@ -36,8 +38,8 @@ def wide_bvh_from_numpy(arrays: Mapping[str, object], device="cuda") -> WideKern
     """`arrays` holds node_rows, tri_rows, tri_pos, arity and the TriBVH
     fields: tri_order plus the LBVH fields (left, right, node_min,
     node_max, leaf_prim, first, skip)."""
-    bvh = LBVH(**{k: np.asarray(arrays[k]) for k in LBVH._fields})
-    tribvh = TriBVH(bvh=bvh, tri_order=np.asarray(arrays["tri_order"]))
+    tribvh = tribvh_from_tpurt(arrays)
+    bvh = tribvh.bvh
     arity = int(arrays["arity"])
     child, wide_of = collapse_to_wide(tribvh, arity)
     bound = _stack_bound(child, wide_of, bvh.num_internal)
@@ -49,3 +51,20 @@ def wide_bvh_from_numpy(arrays: Mapping[str, object], device="cuda") -> WideKern
         tri_rows=_dev(np.asarray(arrays["tri_rows"], np.float32), device),
         tri_pos=_dev(np.asarray(arrays["tri_pos"], np.float32), device),
         arity=arity, stack_bound=bound)
+
+
+def tribvh_from_tpurt(arrays: Mapping[str, object]) -> TriBVH:
+    """`arrays` holds tri_order and the LBVH fields (left, right,
+    node_min, node_max, leaf_prim, first, skip), as numpy arrays."""
+    bvh = LBVH(**{k: np.asarray(arrays[k]) for k in LBVH._fields})
+    return TriBVH(bvh=bvh, tri_order=np.asarray(arrays["tri_order"]))
+
+
+def kernel_bvh_from_tpurt(arrays: Mapping[str, object], device="cuda") -> KernelBVH:
+    """tpurt's rope tables: `arrays` holds node_rows, tri_rows and the
+    TriBVH fields (see tribvh_from_tpurt)."""
+    tribvh = tribvh_from_tpurt(arrays)
+    return KernelBVH(tribvh=tribvh,
+                     node_rows=_dev(np.asarray(arrays["node_rows"], np.float32), device),
+                     tri_rows=_dev(np.asarray(arrays["tri_rows"], np.float32), device),
+                     tri_order=_dev(np.asarray(tribvh.tri_order, np.int64), device))

@@ -11,9 +11,10 @@
 //
 // Design. One thread per ray, 128 threads per block. Each ray walks its
 // own stack in local memory (int[256]; the host's exact _stack_bound
-// result is checked against it before launch, and an overflow sets
-// *err instead of writing past the array). The ray reads the node rows
-// of its own direction octant through the read-only cache (__ldg). The
+// result is checked against it before launch, and an overflow ORs bit 1
+// into *err, the card's error word, instead of writing past the array).
+// The ray reads the node rows of its own direction octant through the
+// read-only cache (__ldg). The
 // TPU walked one octant per 1024-ray packet over the packet's union of
 // nodes because its step was a serial scalar chain; a GPU thread needs
 // no such sharing, and the closest hit is the same (only exact-t ties
@@ -103,7 +104,7 @@ wide_traverse(const float* __restrict__ node_rows, int n_wide,
                                fminf(fmaxf(t0z, t1z), t_best));
         if (tn <= tf) {
           if (sp >= kMaxStack) {
-            atomicExch(err, 1);
+            atomicOr(err, 1);  // cudalib.ERR_WIDE_STACK
             return;
           }
           const int link = (int)__ldg(row + link0 + s);

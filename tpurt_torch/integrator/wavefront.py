@@ -38,9 +38,11 @@ from tpurt_torch.kernels.intersect import (
     KIND_MISS,
     KIND_TRIANGLE,
     intersect_spheres,
+    mask_cell,
 )
 from tpurt_torch.kernels.lights import pdf_sphere, sample_hemisphere_uniform, sample_sphere
 from tpurt_torch.kernels.texture import sample_texture_alpha_quad, sample_texture_quad
+from tpurt_torch.kernels.wide import WideKernelBVH
 from tpurt_torch.scene.device import DeviceScene
 from tpurt_torch.scene.types import NO_TEXTURE
 
@@ -83,9 +85,7 @@ def _alpha_eval(scene: DeviceScene, u, v, prim, tested) -> torch.Tensor:
     """Exact any-hit alpha test: decided 4x4 cells answer from the fused
     alpha row; the texture tap runs only on undecided cells."""
     row = scene.tri_alpha_row[prim.long()]
-    cu = torch.clamp(torch.clamp(u * 4.0, 0.0, 4.0).to(torch.int32), 0, 3)
-    cv = torch.clamp(torch.clamp(v * 4.0, 0.0, 4.0).to(torch.int32), 0, 3)
-    cell = cu * 4 + cv
+    cell = mask_cell(u, v)
     tbit = (row[:, 9].to(torch.int32) >> cell) & 1
     obit = (row[:, 10].to(torch.int32) >> cell) & 1
     undecided = tested & (tbit == 0) & (obit == 0)
@@ -159,10 +159,12 @@ def _trace(scene, bvh, o, d, t_min0, active, include_spheres, cfg: RenderConfig,
 
 def _trace_shadow(scene, bvh, o, d, active, throughput, cfg: RenderConfig,
                   has_alpha: bool, ray_class=None):
-    """NEE shadow resolution as an occlusion query (K2) plus the analytic
-    sphere lights, with the exact alpha recheck and occlusion re-trace
-    past texture-rejected hits. Returns (rgb (N, 3), alpha code (N,),
-    is_miss (N,)) in the reference's payload protocol."""
+    """NEE shadow resolution plus the analytic sphere lights. Over the
+    wide tables it is an occlusion query (K2) with the exact alpha recheck
+    and occlusion re-trace past texture-rejected hits; on the rope path a
+    full closest-hit trace (K3) with the alpha re-trace, as in tpurt.
+    Returns (rgb (N, 3), alpha code (N,), is_miss (N,)) in the
+    reference's payload protocol."""
     n = o.shape[0]
     dev = o.device
     t_min0 = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -175,34 +177,42 @@ def _trace_shadow(scene, bvh, o, d, active, throughput, cfg: RenderConfig,
         s_t = torch.full((n,), t_max, dtype=torch.float32, device=dev)
         s_id = torch.zeros(n, dtype=torch.int32, device=dev)
     t_limit = torch.where(s_hit, s_t, torch.full_like(s_t, t_max))
-    if ray_class is None:
-        ray_class = (torch.arange(n, device=dev) >= (n // 2)).to(torch.int32)
-    blocked, hit = occlusion_hit(bvh, o, d, t_min0, t_limit, active, has_alpha,
-                                 ray_class=ray_class)
-    if has_alpha:
-        unc = active & ~blocked & (hit.prim >= 0)
-        # with mask columns, the kernel's uncertain lanes are exactly the
-        # alpha-testable undecided-cell hits: `unc` doubles as pending
-        kernel_masks = bvh.use_masks
-        rej = _alpha_rejected(scene, hit, unc, unc if kernel_masks else None)
-        blocked = blocked | (unc & ~rej)
-        t_min = t_min0
-        for _ in range(cfg.max_alpha_skips):
-            if not bool(rej.any()):
-                break
-            t_min = torch.where(rej, _retrace_tmin(hit.t), t_min)
-            idx = _nz(rej)
-            b_c, h_c = occlusion_hit(bvh, o[idx], d[idx], t_min[idx], t_limit[idx],
-                                     torch.ones_like(idx, dtype=torch.bool), has_alpha)
-            b2 = torch.zeros_like(rej)
-            b2[idx] = b_c
-            hit = _hit_scatter(hit, idx, h_c)
-            unc2 = rej & ~b2 & (hit.prim >= 0)
-            rej2 = _alpha_rejected(scene, hit, unc2, unc2 if kernel_masks else None)
-            blocked = blocked | (rej & b2) | (unc2 & ~rej2)
-            rej = rej2
-        # re-trace cap reached: the rejected hit stays a surface (black)
-        blocked = blocked | rej
+    if isinstance(bvh, WideKernelBVH):
+        if ray_class is None:
+            ray_class = (torch.arange(n, device=dev) >= (n // 2)).to(torch.int32)
+        blocked, hit = occlusion_hit(bvh, o, d, t_min0, t_limit, active, has_alpha,
+                                     ray_class=ray_class)
+        if has_alpha:
+            unc = active & ~blocked & (hit.prim >= 0)
+            # with mask columns, the kernel's uncertain lanes are exactly the
+            # alpha-testable undecided-cell hits: `unc` doubles as pending
+            kernel_masks = bvh.use_masks
+            rej = _alpha_rejected(scene, hit, unc, unc if kernel_masks else None)
+            blocked = blocked | (unc & ~rej)
+            t_min = t_min0
+            for _ in range(cfg.max_alpha_skips):
+                if not bool(rej.any()):
+                    break
+                t_min = torch.where(rej, _retrace_tmin(hit.t), t_min)
+                idx = _nz(rej)
+                b_c, h_c = occlusion_hit(bvh, o[idx], d[idx], t_min[idx], t_limit[idx],
+                                         torch.ones_like(idx, dtype=torch.bool), has_alpha)
+                b2 = torch.zeros_like(rej)
+                b2[idx] = b_c
+                hit = _hit_scatter(hit, idx, h_c)
+                unc2 = rej & ~b2 & (hit.prim >= 0)
+                rej2 = _alpha_rejected(scene, hit, unc2, unc2 if kernel_masks else None)
+                blocked = blocked | (rej & b2) | (unc2 & ~rej2)
+                rej = rej2
+            # re-trace cap reached: the rejected hit stays a surface (black)
+            blocked = blocked | rej
+    else:
+        # the rope path (tpurt:486-490): a full closest-hit trace with the
+        # alpha re-trace; <= commits a surface tied with the sphere, as the
+        # closest-hit formulation does (s_hit needed s_t < t)
+        hit = _trace(scene, bvh, o, d, t_min0, active, False, cfg, has_alpha,
+                     sort_rays=False)
+        blocked = active & (hit.kind == KIND_TRIANGLE) & (hit.t <= t_limit)
 
     sky = torch.tensor(cfg.sky_color, dtype=torch.float32, device=dev)
     if scene.lights.shape[0] > 0:
@@ -351,7 +361,7 @@ def _nee1(scene, cfg, sp: Shade, wo, dir1, pick_env, lt, rgb1, a1):
     vis_env1 = (a1 < -1.0).to(torch.float32)
     w_env = (bsdf_fe * cos1 * vis_env1
              * B.power_heuristic(1.0, _ENV_PDF, 1.0, bsdf_pdfe)
-             / _ENV_PDF)
+             * B.recip32(_ENV_PDF))
     w_env = torch.where(bsdf_pdfe <= 0.0, torch.zeros_like(w_env), w_env)
     contrib_env = w_env[:, None] * rgb1
     return torch.where(pick_env[:, None], contrib_env, contrib_light)

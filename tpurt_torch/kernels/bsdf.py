@@ -30,8 +30,25 @@ def _cross(a, b):
     return torch.stack([ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1)
 
 
+def recip32(c) -> float:
+    """1/c rounded to float32. XLA compiles tpurt's division by a constant,
+    `x / c`, as the multiplication `x * recip32(c)` (its algebraic
+    simplifier inverts constant divisors), so the port writes that
+    multiplication where tpurt divides by a constant that is not a power
+    of two."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def sqrt_rn(x):
+    """The IEEE-754 float32 square root (correctly rounded), which XLA and
+    the card's sqrtf compute. PyTorch's CPU float32 sqrt is off by an ulp
+    on about 0.7% of inputs; the float64 root rounded to float32 is exact
+    (rounding a square root from 53 bits to 24 is innocuous)."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
 def _norm(v):
-    return torch.sqrt(_dot(v, v))
+    return sqrt_rn(_dot(v, v))
 
 
 def _normalize(v, eps=1e-20):
@@ -81,9 +98,9 @@ def smith_g1_r1(tan_theta):
 
 def smith_g(wi, wo, normal, alpha):
     cos_in = torch.abs(_dot(wi, normal))
-    sin_in = torch.sqrt(torch.clamp(1.0 - cos_in * cos_in, min=0.0))
+    sin_in = sqrt_rn(torch.clamp(1.0 - cos_in * cos_in, min=0.0))
     cos_out = torch.abs(_dot(wo, normal))
-    sin_out = torch.sqrt(torch.clamp(1.0 - cos_out * cos_out, min=0.0))
+    sin_out = sqrt_rn(torch.clamp(1.0 - cos_out * cos_out, min=0.0))
     tan_in = _where(torch.abs(cos_in) < 1e-5, 0.0, sin_in / torch.clamp(cos_in, min=1e-30))
     tan_out = _where(torch.abs(cos_out) < 1e-5, 0.0, sin_out / torch.clamp(cos_out, min=1e-30))
     return 1.0 / (1.0 + beckmann_lambda(tan_in, alpha) + beckmann_lambda(tan_out, alpha))
@@ -129,9 +146,9 @@ def fresnel(cos_theta_i, eta_i=1.0, eta_t=1.5):
     cur_eta_i = _where(flip, float(eta_t), float(eta_i))
     cur_eta_t = _where(flip, float(eta_i), float(eta_t))
     ci = torch.abs(cos_theta_i)
-    sin_i = torch.sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
-    sin_t = cur_eta_i * sin_i / cur_eta_t
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
+    sin_i = sqrt_rn(torch.clamp(1.0 - ci * ci, min=0.0))
+    sin_t = cur_eta_i * sin_i * _where(flip, recip32(eta_i), recip32(eta_t))
+    cos_t = sqrt_rn(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
     r_par = (cur_eta_t * ci - cur_eta_i * cos_t) / (cur_eta_t * ci + cur_eta_i * cos_t)
     r_perp = (cur_eta_i * ci - cur_eta_t * cos_t) / (cur_eta_i * ci + cur_eta_t * cos_t)
     f = 0.5 * (r_par * r_par + r_perp * r_perp)
@@ -171,7 +188,7 @@ def microfacet_bsdf(incident, outgoing, normal, alpha, eta_i=1.0, eta_t=1.5):
     d = beckmann_d(cos_hn * cos_hn, sin_hn2, alpha)
     g = smith_g(outgoing, incident, normal, alpha)
     spec = _ftz(_ftz(d * f * g) / torch.clamp(4.0 * cos_i * cos_o, min=1e-30))
-    diffuse = torch.clamp(alpha * alpha, max=1.0) / PI
+    diffuse = torch.clamp(alpha * alpha, max=1.0) * recip32(PI)
     return _where(degenerate, 1.0, spec + diffuse)
 
 
@@ -182,7 +199,7 @@ def pdf_microfacet(incident, outgoing, normal, alpha):
     h = torch.where((_dot(h, normal) < 0.0)[..., None], -h, h)
     cos_oh_raw = _dot(outgoing, h)
     cos_oh = torch.clamp(torch.abs(cos_oh_raw), max=1.0)
-    sin_oh = torch.sqrt(torch.clamp(1.0 - cos_oh * cos_oh, min=0.0))
+    sin_oh = sqrt_rn(torch.clamp(1.0 - cos_oh * cos_oh, min=0.0))
     cos_hn = torch.clamp(torch.abs(_dot(h, normal)), max=1.0)
     sin_hn2 = torch.clamp(1.0 - cos_hn * cos_hn, min=0.0)
     d = beckmann_d(cos_hn * cos_hn, sin_hn2, alpha)
@@ -198,10 +215,10 @@ def microfacet_weight(incident, outgoing, normal, alpha):
     h = _normalize(h)
     h = torch.where((_dot(h, normal) < 0.0)[..., None], -h, h)
     cos_ih = torch.clamp(torch.abs(_dot(incident, h)), max=1.0)
-    sin_ih = torch.sqrt(torch.clamp(1.0 - cos_ih * cos_ih, min=0.0))
+    sin_ih = sqrt_rn(torch.clamp(1.0 - cos_ih * cos_ih, min=0.0))
     g = smith_g(incident, outgoing, normal, alpha)
     g1 = smith_g1(sin_ih / torch.clamp(cos_ih, min=1e-30), alpha)
-    w = g / torch.clamp(g1, min=1e-30) + torch.clamp(alpha * alpha, max=1.0) / PI
+    w = g / torch.clamp(g1, min=1e-30) + torch.clamp(alpha * alpha, max=1.0) * recip32(PI)
     return _where(h_len2 < 1e-5, 0.0, w)
 
 
@@ -228,7 +245,7 @@ def sample_microfacet_distribution(incident, normal, alpha, u1, u2):
     w = _normalize(w * torch.stack([alpha, torch.ones_like(alpha), alpha], dim=-1))
 
     cos_theta = torch.abs(w[..., 1])
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    sin_theta = sqrt_rn(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
     w1 = w[..., 1]
     tan_theta = sin_theta / torch.where(torch.abs(w1) < 1e-30,
                                         torch.sign(w1) * 1e-30 + 1e-38, w1)
@@ -247,7 +264,7 @@ def sample_microfacet_distribution(incident, normal, alpha, u1, u2):
     omega2 = cos_theta * (0.5 - 0.5 * erf_cot)
     p_a = omega1 / torch.clamp(omega1 + omega2, min=1e-30)
     u1a1 = u1a / torch.clamp(p_a, min=1e-30)
-    xm_a1 = -torch.sqrt(
+    xm_a1 = -sqrt_rn(
         torch.clamp(-torch.log(torch.clamp(u1a1 * torch.exp(
             -torch.clamp(cot_theta * cot_theta, max=80.0)), min=1e-38)), min=0.0)
     )

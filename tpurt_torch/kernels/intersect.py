@@ -9,7 +9,7 @@ from typing import NamedTuple
 
 import torch
 
-from tpurt_torch.kernels.bsdf import _cross, _dot
+from tpurt_torch.kernels.bsdf import _cross, _dot, sqrt_rn
 
 KIND_MISS = 0
 KIND_TRIANGLE = 1
@@ -42,6 +42,41 @@ def ray_triangle(o, d, v0, v1, v2, t_min, t_max):
     return hit, t, u, v
 
 
+def ray_triangle_rows(tri, ox, oy, oz, dx, dy, dz):
+    """Moller-Trumbore on rays given as x/y/z columns against (N, 9) rows
+    [v0, v1, v2], in the expression order of the traversal kernels (their
+    CUDA versions repeat it operation for operation, built without fused
+    multiply-adds, so t is bit-equal). Returns (ok, u, v, t): ok is
+    |det| > 1e-12; the caller applies the range tests."""
+    v0x, v0y, v0z = tri[:, 0], tri[:, 1], tri[:, 2]
+    e1x, e1y, e1z = tri[:, 3] - v0x, tri[:, 4] - v0y, tri[:, 5] - v0z
+    e2x, e2y, e2z = tri[:, 6] - v0x, tri[:, 7] - v0y, tri[:, 8] - v0z
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    ok = torch.abs(det) > 1e-12
+    inv_det = torch.where(ok, torch.reciprocal(torch.where(ok, det, torch.ones_like(det))),
+                          torch.zeros_like(det))
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    return ok, u, v, t
+
+
+def mask_cell(u, v):
+    """The 4x4 alpha-mask cell of barycentrics (u, v): cu * 4 + cv. The
+    clamps before the cast keep lanes outside [0, 1] defined; only hit
+    lanes read the cell."""
+    cu = torch.clamp(torch.clamp(u * 4.0, 0.0, 4.0).to(torch.int32), 0, 3)
+    cv = torch.clamp(torch.clamp(v * 4.0, 0.0, 4.0).to(torch.int32), 0, 3)
+    return cu * 4 + cv
+
+
 def ray_sphere_reference(o, d, center, radius, t_min, t_max):
     """The reference's sphere test (raytrace.rint:5-22) with its q-form
     that omits the 1/2 factors. Returns (hit, t)."""
@@ -50,7 +85,7 @@ def ray_sphere_reference(o, d, center, radius, t_min, t_max):
     c = _dot(cto, cto) - radius * radius
     b2 = 2.0 * b
     disc = b2 * b2 - 4.0 * c
-    sqrt_disc = torch.sqrt(torch.clamp(disc, min=0.0))
+    sqrt_disc = sqrt_rn(torch.clamp(disc, min=0.0))
     q = torch.where(b > 0.0, -b - sqrt_disc, -b + sqrt_disc)
     q_safe = torch.where(q == 0.0, torch.full_like(q, 1e-20), q)
     t = torch.minimum(q, c / q_safe)

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from tpurt_torch.kernels.bsdf import PI, _cross, _dot, _normalize, _where
+from tpurt_torch.kernels.bsdf import PI, _cross, _dot, _normalize, _where, sqrt_rn
 
 
 def sample_hemisphere_uniform(normal, u1, u2):
@@ -18,7 +18,7 @@ def sample_hemisphere_uniform(normal, u1, u2):
     t_alt = torch.stack([ny, zero, -nz], dim=-1)
     t1 = _normalize(torch.where(cond[..., None], t_main, t_alt))
     t2 = _cross(normal, t1)
-    m = torch.sqrt(torch.clamp(1.0 - u1 * u1, min=0.0))
+    m = sqrt_rn(torch.clamp(1.0 - u1 * u1, min=0.0))
     vx = torch.cos(2.0 * PI * u2) * m
     vy = u1
     vz = -torch.sin(2.0 * PI * u2) * m
@@ -32,7 +32,7 @@ def sample_sphere(hit_origin, light_pos, radius, u1, u2):
     otc = light_pos - hit_origin
     dist2 = _dot(otc, otc)
 
-    r_in = torch.sqrt(torch.clamp(u1 * (1.0 - u1), min=0.0))
+    r_in = sqrt_rn(torch.clamp(u1 * (1.0 - u1), min=0.0))
     inside_vec = torch.stack(
         [
             2.0 * torch.cos(2.0 * PI * u2) * r_in,
@@ -43,15 +43,15 @@ def sample_sphere(hit_origin, light_pos, radius, u1, u2):
     )
 
     sin_theta_max2 = (radius * radius) / torch.clamp(dist2, min=1e-30)
-    cos_theta_max = torch.sqrt(torch.clamp(1.0 - sin_theta_max2, min=0.0))
+    cos_theta_max = sqrt_rn(torch.clamp(1.0 - sin_theta_max2, min=0.0))
     cos_theta = (1.0 - u1) + u1 * cos_theta_max
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    sin_theta = sqrt_rn(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
     phi = u2 * 2.0 * PI
-    dc = torch.sqrt(torch.clamp(dist2, min=1e-30))
-    ds = dc * cos_theta - torch.sqrt(
+    dc = sqrt_rn(torch.clamp(dist2, min=1e-30))
+    ds = dc * cos_theta - sqrt_rn(
         torch.clamp(radius * radius - dist2 * sin_theta * sin_theta, min=0.0))
     cos_alpha = (dist2 + radius * radius - ds * ds) / torch.clamp(2.0 * dc * radius, min=1e-30)
-    sin_alpha = torch.sqrt(torch.clamp(1.0 - cos_alpha * cos_alpha, min=0.0))
+    sin_alpha = sqrt_rn(torch.clamp(1.0 - cos_alpha * cos_alpha, min=0.0))
     otc_n = _normalize(otc)
 
     ox, oy, oz = otc_n[..., 0], otc_n[..., 1], otc_n[..., 2]
@@ -83,7 +83,7 @@ def pdf_sphere(hit_origin, sample_dir, light_pos, radius):
     inside = dist2 < radius * radius
     pdf_inside = 1.0 / (4.0 * PI * radius * radius)
     sin_theta_max2 = (radius * radius) / torch.clamp(dist2, min=1e-30)
-    cos_theta_max = torch.sqrt(torch.clamp(1.0 - sin_theta_max2, min=0.0))
+    cos_theta_max = sqrt_rn(torch.clamp(1.0 - sin_theta_max2, min=0.0))
     pdf_outside = 1.0 / torch.clamp(2.0 * PI * (1.0 - cos_theta_max), min=1e-30)
     pdf = torch.where(inside, pdf_inside, pdf_outside)
     return _where(disc < 0.0, 0.0, pdf)

@@ -6,12 +6,14 @@ from __future__ import annotations
 
 import torch
 
+from tpurt_torch.kernels.bsdf import recip32
 from tpurt_torch.scene.types import FILTER_LINEAR, WRAP_MIRRORED_REPEAT, WRAP_REPEAT
 
 
 def srgb_to_linear(c):
     """Piecewise sRGB EOTF."""
-    return torch.where(c <= 0.04045, c / 12.92, torch.pow((c + 0.055) / 1.055, 2.4))
+    return torch.where(c <= 0.04045, c * recip32(12.92),
+                       torch.pow((c + 0.055) * recip32(1.055), 2.4))
 
 
 def _wrap(i, size, mode):

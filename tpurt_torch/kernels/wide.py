@@ -32,18 +32,15 @@ blocker and otherwise keeps the closest uncertain (alpha-testable) hit.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import os
-import subprocess
-import tempfile
-import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
 from tpurt_torch.bvh.lbvh import TriBVH
+from tpurt_torch.kernels import cudalib
+from tpurt_torch.kernels.intersect import mask_cell, ray_triangle_rows
 
 ARITY = 16
 _LANE = 128
@@ -53,9 +50,6 @@ _BIG = 3.0e38
 
 # launches of the CUDA kernel per mode; plain CPU traversals do not count
 LAUNCHES = {"closest": 0, "occlusion": 0}
-# one device-side error word per card, set by any launch whose stack
-# overflowed; read (a host sync) only by check_kernel_errors
-_ERR_WORDS = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,6 +293,14 @@ def make_wide_kernel_bvh(tribvh: TriBVH, tri_pos, tri_alpha_mask=None,
         arity=arity, stack_bound=bound)
 
 
+def wide_supported(tribvh: TriBVH) -> bool:
+    """Whether the leaves fit the wide leaf row (G*10 <= 128: 9 vertex
+    floats and an id per triangle). tpurt also checks its tables against
+    an 80 MB VMEM budget; that is a limit of the TPU's on-chip memory and
+    has no counterpart on the card."""
+    return tribvh.group_size * 10 <= _LANE
+
+
 def pick_group_size_wide(num_tris: int, vmem_budget_bytes=80 * 2 ** 20) -> int:
     """Leaf group size, chosen exactly as tpurt chooses it (G=8 unless the
     tables grow past tpurt's planning budget), so both packages build
@@ -314,22 +316,9 @@ def pick_group_size_wide(num_tris: int, vmem_budget_bytes=80 * 2 ** 20) -> int:
 def _uv_from_prim(kbvh: WideKernelBVH, o, d, prim):
     """Barycentrics of the committed hit, recomputed from the triangle
     with the traversal's Moller-Trumbore arithmetic."""
-    from tpurt_torch.kernels.bsdf import _cross, _dot
-
     tp = kbvh.tri_pos.reshape(kbvh.tri_pos.shape[0], 9)
     row = tp[torch.clamp(prim, 0, tp.shape[0] - 1).long()]
-    v0 = row[:, 0:3]
-    e1 = row[:, 3:6] - v0
-    e2 = row[:, 6:9] - v0
-    pv = _cross(d, e2)
-    det = _dot(e1, pv)
-    ok = torch.abs(det) > 1e-12
-    inv = torch.where(ok, torch.reciprocal(torch.where(ok, det, torch.ones_like(det))),
-                      torch.zeros_like(det))
-    tv = o - v0
-    u = _dot(tv, pv) * inv
-    qv = _cross(tv, e1)
-    v = _dot(d, qv) * inv
+    _, u, v, _ = ray_triangle_rows(row, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])
     hit = prim >= 0
     zero = torch.zeros_like(u)
     return torch.where(hit, u, zero), torch.where(hit, v, zero)
@@ -439,33 +428,13 @@ def traverse_plain(node_rows, tri_rows, o, d, t_min, t_limit, *, group: int,
             pr = prim[li]
             fl = flag[li]
             for k in range(g):
-                b = k * 9
-                v0x, v0y, v0z = lrow[:, b], lrow[:, b + 1], lrow[:, b + 2]
-                e1x, e1y, e1z = lrow[:, b + 3] - v0x, lrow[:, b + 4] - v0y, lrow[:, b + 5] - v0z
-                e2x, e2y, e2z = lrow[:, b + 6] - v0x, lrow[:, b + 7] - v0y, lrow[:, b + 8] - v0z
-                px = ldy * e2z - ldz * e2y
-                py = ldz * e2x - ldx * e2z
-                pz = ldx * e2y - ldy * e2x
-                det = e1x * px + e1y * py + e1z * pz
-                ok = torch.abs(det) > 1e-12
-                inv_det = torch.where(ok, torch.reciprocal(torch.where(ok, det, torch.ones_like(det))),
-                                      torch.zeros_like(det))
-                tx, ty, tz = lox - v0x, loy - v0y, loz - v0z
-                u = (tx * px + ty * py + tz * pz) * inv_det
-                qx = ty * e1z - tz * e1y
-                qy = tz * e1x - tx * e1z
-                qz = tx * e1y - ty * e1x
-                v = (ldx * qx + ldy * qy + ldz * qz) * inv_det
-                t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+                ok, u, v, t = ray_triangle_rows(lrow[:, 9 * k:9 * k + 9], lox, loy, loz,
+                                                ldx, ldy, ldz)
                 hit = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > ltmin) & (t < tb)
                 testable = None
                 if apply_masks:
                     m_int = lrow[:, g * 9 + k].to(torch.int32)
-                    # clamp before the cast: only hit lanes (u, v in [0, 1])
-                    # read the cell, and the clamp keeps the others defined
-                    cu = torch.clamp(torch.clamp(u * 4.0, 0.0, 4.0).to(torch.int32), 0, 3)
-                    cv = torch.clamp(torch.clamp(v * 4.0, 0.0, 4.0).to(torch.int32), 0, 3)
-                    cell = cu * 4 + cv
+                    cell = mask_cell(u, v)
                     hit = hit & (((m_int >> cell) & 1) == 0)
                     testable = ((m_int >> 16) & 1) == 1
                     if use_opaque:
@@ -505,90 +474,29 @@ def traverse_plain(node_rows, tri_rows, o, d, t_min, t_limit, *, group: int,
 
 # ---- the CUDA kernel: build, bind, launch ----------------------------------
 
-_CU_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       "csrc", "wide_traverse.cu")
-_KLOCK = threading.Lock()
-_KLIB: Optional[ctypes.CDLL] = None
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
-
-
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-                 "nvcc"):
-        if os.path.sep not in cand or os.path.exists(cand):
-            return cand
-    return "nvcc"
-
-
-def kernel_library_path() -> str:
-    from tpurt_torch.native import BUILD_DIR
-
-    return os.path.join(BUILD_DIR, "libwide_traverse.so")
-
-
-def build_kernel_library(force: bool = False) -> str:
-    """nvcc the traversal kernel into a shared library with a plain C
-    interface (no PyTorch headers). Rebuilds when the source is newer."""
-    from tpurt_torch.native import BUILD_DIR
-
-    so = kernel_library_path()
-    if (not force and os.path.exists(so)
-            and os.path.getmtime(so) >= os.path.getmtime(_CU_SRC)):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _CU_SRC]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"kernel build failed: {' '.join(cmd)}\n{res.stderr}")
-    os.replace(tmp, so)
-    return so
-
-
-def _kernel_lib() -> ctypes.CDLL:
-    global _KLIB
-    with _KLOCK:
-        if _KLIB is None:
-            lib = ctypes.CDLL(build_kernel_library())
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            for name in ("tpurt_wide_closest", "tpurt_wide_occlusion"):
-                fn = getattr(lib, name)
-                fn.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, vp, vp, vp, ci,
-                               ci, ci, ci, ci, ci, ci, vp, vp]
-                fn.restype = ci
-            _KLIB = lib
-        return _KLIB
-
-
-def _check(x: torch.Tensor, name: str, shape, dtype=torch.float32):
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+_LIB = "wide_traverse"
+_ARGTYPES = {name: cudalib.argtypes("pipipppppppiiiiiiipp")
+             for name in ("tpurt_wide_closest", "tpurt_wide_occlusion")}
 
 
 def traverse_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, occlusion: bool,
                   all_definite: bool, cell_masks: bool):
     """Launch K1 (closest) or K2 (occlusion) on the current stream.
     Returns (t, prim, flag) as traverse_plain does. Does not wait for the
-    card: a stack overflow surfaces at the next check_kernel_errors."""
+    card: a stack overflow surfaces at the next
+    cudalib.check_kernel_errors."""
     dev = o.device
     n = o.shape[0]
     for name, x in (("node_rows", kbvh.node_rows), ("tri_rows", kbvh.tri_rows),
                     ("t_min", t_min), ("t_limit", t_limit), ("d", d)):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, rays are on {dev}")
-    _check(o, "o", (n, 3))
-    _check(d, "d", (n, 3))
-    _check(t_min, "t_min", (n,))
-    _check(t_limit, "t_limit", (n,))
-    _check(kbvh.node_rows, "node_rows", (8, kbvh.node_rows.shape[1], _LANE))
-    _check(kbvh.tri_rows, "tri_rows", tuple(kbvh.tri_rows.shape))
+    cudalib.check(o, "o", (n, 3))
+    cudalib.check(d, "d", (n, 3))
+    cudalib.check(t_min, "t_min", (n,))
+    cudalib.check(t_limit, "t_limit", (n,))
+    cudalib.check(kbvh.node_rows, "node_rows", (8, kbvh.node_rows.shape[1], _LANE))
+    cudalib.check(kbvh.tri_rows, "tri_rows", tuple(kbvh.tri_rows.shape))
     if kbvh.arity * 8 > _LANE:
         raise ValueError(f"arity {kbvh.arity} does not fit a node row")
     if kbvh.stack_bound > MAX_STACK:
@@ -599,10 +507,8 @@ def traverse_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, occlusion: bool,
     flag = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return t, prim, flag
-    lib = _kernel_lib()
-    err = _ERR_WORDS.get(_card(dev))
-    if err is None:
-        err = _ERR_WORDS[_card(dev)] = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = cudalib.load(_LIB, _ARGTYPES)
+    err = cudalib.error_word(dev)
     fn = lib.tpurt_wide_occlusion if occlusion else lib.tpurt_wide_closest
     apply_masks = kbvh.use_masks and (occlusion or cell_masks)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -613,27 +519,9 @@ def traverse_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, occlusion: bool,
             kbvh.group_size, kbvh.arity, int(kbvh.use_masks),
             int(kbvh.use_opaque), int(apply_masks), int(all_definite),
             err.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"wide traversal kernel launch failed: CUDA error {rc}")
+    cudalib.launch_check(rc, "wide traversal")
     LAUNCHES["occlusion" if occlusion else "closest"] += 1
     return t, prim, flag
-
-
-def _card(device) -> int:
-    device = torch.device(device)
-    return torch.cuda.current_device() if device.index is None else device.index
-
-
-def check_kernel_errors(device) -> None:
-    """Raise if a kernel launch on `device` since the last check overflowed
-    its stack (its results are then wrong), and clear the word. Waits for
-    the launches queued so far; the renderer calls it once per sample."""
-    if torch.device(device).type != "cuda":
-        return
-    err = _ERR_WORDS.get(_card(device))
-    if err is not None and int(err.item()) != 0:
-        err.zero_()
-        raise RuntimeError(f"wide traversal stack overflow (capacity {MAX_STACK})")
 
 
 def _traverse(kbvh, o, d, t_min, t_limit, *, occlusion, all_definite, cell_masks):

@@ -3,9 +3,20 @@
 
 It owns the accumulation buffer and the sample counter, resets on a
 camera change, and prints the reference's convergence line once the
-sample target is reached. The wide traversal tables are always built,
-on every device: the CPU runs the same traversal through the kernel's
-plain version. The scene cache and checkpoints come in a later slice.
+sample target is reached. The scene cache and checkpoints come in a
+later slice.
+
+Two render paths, chosen at construction:
+
+- the wide path (the default): the 16-ary wide tables, traced by K1/K2;
+- the rope path: the binary TriBVH's rope tables, traced by K3, with
+  shadow rays resolved by a full closest-hit trace. It is taken when the
+  caller passes a TriBVH as `bvh` (tpurt's goldens come from this path:
+  tpurt takes it on the CPU), or when the leaves do not fit the wide leaf
+  row (`wide.wide_supported`).
+
+Unlike tpurt, the path does not depend on the device: the CPU runs the
+same path through each kernel's plain version.
 """
 
 from __future__ import annotations
@@ -17,12 +28,19 @@ import numpy as np
 import torch
 
 from tpurt_torch import film
-from tpurt_torch.bvh.lbvh import build_triangle_bvh
+from tpurt_torch.bvh.lbvh import TriBVH, build_triangle_bvh
 from tpurt_torch.camera import Camera
 from tpurt_torch.config import RenderConfig, SphereLight
 from tpurt_torch.integrator.wavefront import RayStats, render_sample
-from tpurt_torch.kernels import wide
-from tpurt_torch.kernels.wide import collapse_to_wide, make_wide_kernel_bvh, pick_group_size_wide
+from tpurt_torch.kernels import cudalib
+from tpurt_torch.kernels.experimental import rope
+from tpurt_torch.kernels.wide import (
+    WideKernelBVH,
+    collapse_to_wide,
+    make_wide_kernel_bvh,
+    pick_group_size_wide,
+    wide_supported,
+)
 from tpurt_torch.runtime.device import resolve_device
 from tpurt_torch.scene.device import DeviceScene, build_device_scene
 from tpurt_torch.scene.gltf import camera_for_render, load_gltf
@@ -32,7 +50,10 @@ from tpurt_torch.scene.types import NO_TEXTURE, SceneData
 class Renderer:
     def __init__(self, scene: SceneData, config: RenderConfig = RenderConfig(),
                  lights: Sequence[SphereLight] = (), camera: Optional[Camera] = None,
-                 device="cuda"):
+                 device="cuda", bvh=None):
+        """`bvh`: a prebuilt acceleration structure to use instead of
+        building one: a TriBVH (the rope path; its rope tables move to the
+        device here, once) or a WideKernelBVH on `device`."""
         self.device = resolve_device(device)
         self.config = config
         self.timings = {}
@@ -48,32 +69,42 @@ class Renderer:
                                (mats.tex_albedo, mats.tex_mr, mats.tex_normal,
                                 mats.tex_emissive))
         tri_np = ds.tri_pos.cpu().numpy()
-        t0 = time.perf_counter()
-        tribvh = build_triangle_bvh(tri_np, group_size=pick_group_size_wide(tri_np.shape[0]))
-        self.timings["sah_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        collapse = collapse_to_wide(tribvh)
-        self.timings["collapse_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self.bvh = make_wide_kernel_bvh(
-            tribvh, tri_np,
-            tri_alpha_mask=ds.tri_alpha_mask if self.has_alpha else None,
-            tri_alpha_opaque=ds.tri_alpha_opaque if self.has_alpha else None,
-            device=self.device, collapse=collapse)
-        self.timings["pack_s"] = time.perf_counter() - t0
+        if bvh is None:
+            t0 = time.perf_counter()
+            bvh = build_triangle_bvh(tri_np, group_size=pick_group_size_wide(tri_np.shape[0]))
+            self.timings["sah_s"] = time.perf_counter() - t0
+            if wide_supported(bvh):
+                t0 = time.perf_counter()
+                collapse = collapse_to_wide(bvh)
+                self.timings["collapse_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                bvh = make_wide_kernel_bvh(
+                    bvh, tri_np,
+                    tri_alpha_mask=ds.tri_alpha_mask if self.has_alpha else None,
+                    tri_alpha_opaque=ds.tri_alpha_opaque if self.has_alpha else None,
+                    device=self.device, collapse=collapse)
+                self.timings["pack_s"] = time.perf_counter() - t0
+        if isinstance(bvh, TriBVH):
+            t0 = time.perf_counter()
+            bvh = rope.make_kernel_bvh(bvh, tri_np, device=self.device)
+            self.timings["pack_s"] = time.perf_counter() - t0
+        elif not isinstance(bvh, WideKernelBVH):
+            raise TypeError(f"bvh must be a TriBVH or a WideKernelBVH, not {type(bvh).__name__}")
+        self.bvh = bvh
         self.last_stats = RayStats(0.0, 0.0)
         self.reset()
 
     @classmethod
     def from_gltf(cls, paths, config: RenderConfig = RenderConfig(),
                   lights: Sequence[SphereLight] = (), camera: Optional[Camera] = None,
-                  device="cuda") -> "Renderer":
-        """Load a glTF/GLB scene and build the renderer on `device`."""
+                  device="cuda", bvh=None) -> "Renderer":
+        """Load a glTF/GLB scene and build the renderer on `device`
+        (`bvh` as for the constructor)."""
         resolve_device(device)
         t0 = time.perf_counter()
         scene = load_gltf(paths)
         load_s = time.perf_counter() - t0
-        r = cls(scene, config=config, lights=lights, camera=camera, device=device)
+        r = cls(scene, config=config, lights=lights, camera=camera, device=device, bvh=bvh)
         r.timings["gltf_load_s"] = load_s
         return r
 
@@ -114,7 +145,7 @@ class Renderer:
         self.sample_count += spp
         self.accum = film.accumulate(self.accum, radiance, launch_index + 1)
         self._sync()
-        wide.check_kernel_errors(self.device)
+        cudalib.check_kernel_errors(self.device)
         self.sample_time += time.perf_counter() - t0
         self.last_stats = stats
         self.rays = RayStats(self.rays.logical + stats.logical,
