@@ -6,8 +6,9 @@
 Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
 
   device   card name, power limit, torch version; no card is an error
-  build    nvcc both CUDA sources (wide_traverse.cu, rope_traverse.cu) and
-           g++ the native host core, all at once
+  build    nvcc the four CUDA sources (wide_traverse.cu, rope_traverse.cu,
+           wide_octet.cu, wide_stepcost.cu) and g++ the native host core,
+           all at once
   scene    write the bench's Sponza-like scene (~215k triangles), load it,
            build the renderer at 1920x1080 on the card, time each host step
   kernels  hold K1 (closest hit: 65,536 camera rays, 65,536 bounce rays with
@@ -38,16 +39,43 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            ROPE_VS_WIDE_RMSE. Then K4's own path, rope.occlusion_packets on
            the frame's 2,073,600 shadow rays (camera hits to the lights),
            counted and held against the plain version
+  octet    K5, the multi-walk kernel: against octet_plain at 8 walks on the
+           three 65,536-ray batches of `kernels` and at 2 and 4 walks on the
+           camera batch, t, prim and flag bit-equal (the same walk order);
+           against K1 (t bit-equal, prim only on ties, pending where prim
+           agrees) and against K2 over tables without masks (blocked equal
+           with every hit definite, the closest hit with none), with K5
+           and K1/K2 timed in turns (K5's bound is K1/K2's on the same
+           rays, since the function is theirs; the union walk's own tests
+           give union_bound_ms beside it). Then the render path at full size:
+           Renderer(config=RenderConfig(kernel=KernelPolicy(octet_closest=8,
+           octet_occlusion=8))), 1 warm-up and 2 timed samples with every
+           launch counter zeroed just before; K5 must launch, K1 and K2 must
+           not; 0 NaN pixels; the image within ROPE_VS_WIDE_RMSE of the
+           `render` phase's; the warm-up's first camera, bounce and shadow
+           waves held against octet_plain
+  stepcost K6, the step-cost instrument: against stepcost_plain on the bounce
+           batch (without cell masks) at the longest K1 walk of the batch,
+           in every configuration kernel_bench times, t, prim and acc
+           bit-equal; with every phase on, t and prim equal K1's. Then
+           `python -m tpurt_torch.kernel_bench --stepcost 256` through its
+           main() on the bench's batch (491,520 rays), with the launch
+           counters zeroed just before; the first K6 launch of each
+           configuration in that run is kept and held against
+           stepcost_plain on the same inputs, t, prim and acc bit-equal;
+           the table is printed as one JSON line. The K6 row of the
+           kernels line is this run's full configuration
   golden   the box golden (64x48, 8 spp) rendered on the card, RMSE against
            tests/goldens/box_64x48_8spp.npz (fail above 1e-3)
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
-the {"kernels": [...]} line, and last {"ok": true, "device": {...}}. A
-watchdog ends the run with exit code 1, naming the phase it was in, after
-600 seconds. Needs torch with CUDA, numpy, nvcc and g++; no JAX, no
+the {"kernels": [...]} line (K1-K6), and last {"ok": true, "device":
+{...}}. A watchdog ends the run with exit code 1, naming the phase it was
+in, after 600 seconds. Needs torch with CUDA, numpy, nvcc and g++; no JAX, no
 Pillow, no prebuilt artefact.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -69,6 +97,9 @@ LIGHTS = [((-8.0, -5.0, -2.0), 0.1, (0.8, 0.6, 0.6), 500.0),
 WIDTH, HEIGHT = 1920, 1080
 N_RAYS = 65536
 REPS = 5
+# kernel_bench --stepcost: steps per ray, and K6's phase switches
+BENCH_STEPS = 256
+PHASES = ("do_box", "do_extract", "do_push", "do_leaf")
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32 = 67e12
@@ -187,6 +218,24 @@ def rope_bound(stats, n, row_width, group):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
 
 
+def compare_exact(k, p):
+    """Kernel against plain version when both walk in the same order:
+    rays where t (bits), prim or the flag differ."""
+    import torch
+
+    bad = ((k[0].view(torch.int32) != p[0].view(torch.int32)) | (k[1] != p[1])
+           | (k[2].view(torch.int32) != p[2].view(torch.int32)))
+    hit = k[1] >= 0
+    err = float((k[0][hit] - p[0][hit]).abs().max()) if bool(hit.any()) else 0.0
+    return {"rays": int(k[0].numel()), "mismatch": int(bad.sum()), "max_abs_err": err,
+            "flag_set": int((k[2] != 0).sum()) if k[2].dtype == torch.float32 else None}
+
+
+def timed_kernel(kern):
+    """Median CUDA-event ms of REPS runs of `kern`."""
+    return median([cuda_ms(kern)[0] for _ in range(REPS)])
+
+
 def zero_launch_counts():
     from tpurt_torch.kernels import wide
     from tpurt_torch.kernels.experimental import rope
@@ -252,7 +301,7 @@ def main():
     from tpurt_torch.bvh.lbvh import build_triangle_bvh
     from tpurt_torch.bvh.traverse import _octant_morton_key
     from tpurt_torch.camera import Camera, camera_rays_for_rows
-    from tpurt_torch.config import RenderConfig, SphereLight
+    from tpurt_torch.config import KernelPolicy, RenderConfig, SphereLight
     from tpurt_torch.kernels import cudalib, wide
     from tpurt_torch.kernels.bsdf import _cross, _dot, _normalize
     from tpurt_torch.kernels.experimental import rope
@@ -277,9 +326,9 @@ def main():
         def nvcc(name):
             return lambda force: cudalib.build(name, force=force)
 
-        threads = [threading.Thread(target=run, args=("nvcc_wide_traverse", nvcc("wide_traverse"))),
-                   threading.Thread(target=run, args=("nvcc_rope_traverse", nvcc("rope_traverse"))),
-                   threading.Thread(target=run, args=("gxx_native", native.build))]
+        threads = [threading.Thread(target=run, args=(f"nvcc_{name}", nvcc(name)))
+                   for name in ("wide_traverse", "rope_traverse", "wide_octet", "wide_stepcost")]
+        threads.append(threading.Thread(target=run, args=("gxx_native", native.build)))
         for t in threads:
             t.start()
         for t in threads:
@@ -678,6 +727,254 @@ def main():
             row["max_abs_err"] = max([row["max_abs_err"]]
                                      + [main_cases[m]["max_abs_err"] for m in modes])
             row["main_path_rays_checked"] = sum(main_cases[m]["rays"] for m in modes)
+
+    with Phase("octet") as info:
+        by_name = {c[0]: c for c in cases}
+        octet_results, across5 = {}, {}
+        for name, walks in (("camera", 8), ("bounce", 8), ("shadow", 8), ("camera", 2),
+                            ("camera", 4)):
+            _, mode, o, d, tl, masks = by_name[name]
+            occl = mode == "occlusion"
+            kw = dict(occlusion=occl, all_definite=not r.has_alpha, cell_masks=masks)
+
+            def kern5(o=o, d=d, tl=tl, walks=walks, kw=kw):
+                return wide.octet_cuda(kb, o, d, zeros, tl, walks=walks, **kw)
+
+            def kern1(o=o, d=d, tl=tl, kw=kw):
+                return wide.traverse_cuda(kb, o, d, zeros, tl, **kw)
+
+            stats = {}
+            out_k = kern5()
+            p_ms, out_p = cuda_ms(lambda: wide.octet_plain(
+                kb.node_rows, kb.tri_rows, o, d, zeros, tl, group=kb.group_size,
+                arity=kb.arity, walks=walks, stats=stats, **kw))
+            cudalib.check_kernel_errors(dev)
+            row = compare_exact(out_k, out_p)
+            if not occl:
+                across5[f"K5_{walks}_vs_K1_{name}"] = compare("closest", out_k, kern1())
+            k_ms, k1_ms = timed_pair(kern5, kern1)
+            cudalib.check_kernel_errors(dev)
+            # bound_ms: the function's (K1/K2's on the same rays); the union
+            # walk's tests give union_bound_ms, union_ops and union_bytes
+            u_ms, _, ops, nbytes = bound(stats, N_RAYS, kb.tri_rows.shape[1], kb.group_size)
+            octet_results[f"{name}_{walks}"] = dict(
+                mode=mode, walks=walks, ms=k_ms, k1_ms=k1_ms, plain_ms=p_ms,
+                bound_ms=results[name]["bound_ms"], bound_by=results[name]["bound_by"],
+                union_bound_ms=u_ms, union_ops=ops, union_bytes=nbytes,
+                box_tests_per_ray=float(stats["box_tests"].float().mean()),
+                k1_box_tests_per_ray=results[name]["box_tests_per_ray"],
+                walk_node_steps=float(stats["node_visits"].float().mean()),
+                walk_leaf_steps=float(stats["leaf_visits"].float().mean()), **row)
+        # K5 against K2 over tables without masks, where the answer does not
+        # depend on the walk's order
+        _, _, o, d, tl, _ = by_name["shadow"]
+        for alpha in (False, True):
+            b2, t2, p2, _, _ = wide.occlusion_packets(kb0, o, d, zeros, tl, ones, alpha)
+            b5, t5, p5, _, _ = wide.occlusion_packets(kb0, o, d, zeros, tl, ones, alpha, octet=8)
+            if alpha:
+                across5["K5_vs_K2_none_definite"] = compare(
+                    "occlusion", (t5, p5, b5.float()), (t2, p2, b2.float()))
+            else:
+                across5["K5_vs_K2_all_definite"] = {
+                    "rays": N_RAYS, "blocked": int(b5.sum()),
+                    "mismatch": int((b2 != b5).sum()), "max_abs_err": 0.0}
+        cudalib.check_kernel_errors(dev)
+        info.update(cases=octet_results, across=across5)
+        bad = (sum(v["mismatch"] for v in octet_results.values())
+               + sum(v["mismatch"] for v in across5.values()))
+        if bad:
+            raise RuntimeError(f"K5 mismatches: {bad}")
+        if octet_results["bounce_8"]["flag_set"] == 0 or octet_results["shadow_8"]["flag_set"] == 0:
+            raise RuntimeError("K5 set no pending or blocked flag: masks not exercised")
+
+        # the render path through K5
+        t0 = time.perf_counter()
+        octet_cfg = dataclasses.replace(cfg, kernel=KernelPolicy(octet_closest=8,
+                                                                 octet_occlusion=8))
+        ro = Renderer(scene, config=octet_cfg, camera=camera, lights=lights, device=dev, bvh=kb)
+        setup_s = time.perf_counter() - t0
+        captured = {}
+        launch5 = wide.octet_cuda
+
+        def capture5(kbvh, o, d, t_min, t_limit, **kw):
+            out = launch5(kbvh, o, d, t_min, t_limit, **kw)
+            if not bool((t_min != 0).any()):
+                name = ("shadow_wave" if kw["occlusion"] else
+                        "bounce_wave" if "camera_wave" in captured else "camera_wave")
+                if name not in captured:
+                    captured[name] = ((o.clone(), d.clone(), t_min.clone(), t_limit.clone()),
+                                      kw, tuple(x.clone() for x in out))
+            return out
+
+        zero_launch_counts()
+        wide.octet_cuda = capture5
+        try:
+            t0 = time.perf_counter()
+            ro.render(1)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+        finally:
+            wide.octet_cuda = launch5
+        r0 = ro.rays.physical
+        t0 = time.perf_counter()
+        ro.render(3)
+        torch.cuda.synchronize()
+        timed = time.perf_counter() - t0
+        launches = launch_counts()
+        rays = ro.rays.physical - r0
+        img = ro.accum.cpu().numpy()
+        nan_px = int(np.isnan(img).any(axis=-1).sum())
+        rmse_wide = film.rmse(img, wide_img)
+        png_path = os.path.join(OUT_DIR, "sponza_1080p_3spp_octet8.png")
+        ro.save_png(png_path)
+        info.update(render_setup_s=round(setup_s, 3), warmup_s=round(warm, 3),
+                    seconds_per_sample=round(timed / 2, 3), rays_physical_2spp=rays,
+                    mrays_per_s=round(rays / timed / 1e6, 3), launches=launches,
+                    nan_pixels=nan_px, rmse_vs_wide=rmse_wide, rmse_bound=ROPE_VS_WIDE_RMSE,
+                    png=os.path.relpath(png_path, ROOT),
+                    peak_mem_gb=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+        others = sum(v for k, v in launches.items() if not k.startswith("octet_"))
+        if min(launches["octet_closest"], launches["octet_occlusion"]) <= 0 or others:
+            raise RuntimeError(f"the octet render did not launch K5 alone: {launches}")
+        if nan_px or not rmse_wide <= ROPE_VS_WIDE_RMSE:
+            raise RuntimeError(f"octet image: {nan_px} NaN pixels, RMSE {rmse_wide} against "
+                               f"the wide render (bound {ROPE_VS_WIDE_RMSE})")
+        t0 = time.perf_counter()
+        main_cases = {}
+        for name, (args, kw, out_k) in captured.items():
+            out_p = wide.octet_plain(kb.node_rows, kb.tri_rows, *args, group=kb.group_size,
+                                     arity=kb.arity, **kw)
+            main_cases[name] = compare_exact(out_k, out_p)
+            del out_p
+        del captured
+        info.update(main_path_cases=main_cases,
+                    main_path_check_s=round(time.perf_counter() - t0, 3))
+        if sorted(main_cases) != ["bounce_wave", "camera_wave", "shadow_wave"]:
+            raise RuntimeError(f"the octet render's waves were not captured: {sorted(main_cases)}")
+        bad = sum(v["mismatch"] for v in main_cases.values())
+        if bad:
+            raise RuntimeError(f"octet main-path kernel/plain mismatches: {bad}")
+        sel = [octet_results[c] for c in ("camera_8", "bounce_8", "shadow_8")]
+        # the bound of the function K5 computes, K1/K2's contract, is K1/K2's
+        # on the same rays; the union walk's own tests (each ray tests every
+        # entry its walk pops) stand beside it as union_bound_ms
+        k12 = [results[c] for c in ("camera", "bounce", "shadow")]
+        by_ops = sum(x["ops"] for x in k12) / PEAK_F32
+        by_bytes = sum(x["bytes"] for x in k12) / PEAK_BYTES
+        union_ms = max(sum(x["union_ops"] for x in sel) / PEAK_F32,
+                       sum(x["union_bytes"] for x in sel) / PEAK_BYTES) * 1e3
+        kernel_rows.append({
+            "name": "K5 wide multi-walk (8 walks)", "route": "cuda",
+            "source": "tpurt_torch/csrc/wide_octet.cu",
+            "replaces": "tpurt/kernels/pallas_wide.py:1434",
+            "launches": launches["octet_closest"] + launches["octet_occlusion"],
+            "max_abs_err": max([x["max_abs_err"] for x in octet_results.values()]
+                               + [v["max_abs_err"] for v in across5.values()]
+                               + [v["max_abs_err"] for v in main_cases.values()]),
+            "ms": sum(x["ms"] for x in sel), "plain_ms": sum(x["plain_ms"] for x in sel),
+            "bound_ms": max(by_ops, by_bytes) * 1e3,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "library_ms": None, "rays": N_RAYS * len(sel),
+            "k1_k2_ms": sum(x["k1_ms"] for x in sel), "union_bound_ms": union_ms,
+            "main_path_rays_checked": sum(v["rays"] for v in main_cases.values())})
+
+    with Phase("stepcost") as info:
+        _, _, o, d, _, _ = by_name["bounce"]
+        k1_stats = {}
+        t1, p1, _ = wide.traverse_plain(kb.node_rows, kb.tri_rows, o, d, zeros, far,
+                                        group=kb.group_size, arity=kb.arity, occlusion=False,
+                                        all_definite=False, cell_masks=False, stats=k1_stats)
+        steps = int((k1_stats["node_visits"] + k1_stats["leaf_visits"]).max())
+        step_results = {}
+        for cname, toggles in wide.STEPCOST_CONFIGS:
+            def kern6(toggles=toggles):
+                return wide.stepcost_cuda(kb, o, d, zeros, far, steps=steps, **toggles)
+
+            stats = {}
+            out_k = kern6()
+            p_ms, out_p = cuda_ms(lambda: wide.stepcost_plain(
+                kb.node_rows, kb.tri_rows, o, d, zeros, far, group=kb.group_size,
+                arity=kb.arity, steps=steps, stats=stats, **toggles))
+            torch.cuda.synchronize()
+            row = compare_exact(out_k, out_p)
+            b_ms, b_by, ops, nbytes = bound(stats, N_RAYS, kb.tri_rows.shape[1], kb.group_size)
+            step_results[cname] = dict(ms=timed_kernel(kern6), plain_ms=p_ms, bound_ms=b_ms,
+                                       bound_by=b_by, ops=ops, bytes=nbytes, **row)
+            if cname == "full":
+                t6, p6, _ = out_k
+                full_vs_k1 = {"rays": N_RAYS,
+                              "mismatch": int(((t6.view(torch.int32) != t1.view(torch.int32))
+                                               | (p6 != p1)).sum()),
+                              "max_abs_err": 0.0}
+        info.update(steps=steps, cases=step_results, full_vs_k1=full_vs_k1)
+        bad = sum(v["mismatch"] for v in step_results.values()) + full_vs_k1["mismatch"]
+        if bad:
+            raise RuntimeError(f"K6 mismatches: {bad}")
+        # kernel_bench's step-cost table through its entry point; the first
+        # K6 launch of each configuration is kept and, after the run, held
+        # against stepcost_plain on the same inputs, bit for bit
+        from tpurt_torch import kernel_bench
+
+        launch6, bench_cases = wide.stepcost_cuda, {}
+
+        def capture6(kbvh, o, d, t_min, t_limit, **kw):
+            out = launch6(kbvh, o, d, t_min, t_limit, **kw)
+            cname = next(c for c, tg in wide.STEPCOST_CONFIGS
+                         if all(kw.get(k, True) == tg.get(k, True) for k in PHASES))
+            if cname not in bench_cases:
+                bench_cases[cname] = (kbvh, (o.clone(), d.clone(), t_min.clone(),
+                                             t_limit.clone()), kw, tuple(x.clone() for x in out))
+            return out
+
+        zero_launch_counts()
+        wide.stepcost_cuda = capture6
+        try:
+            table = kernel_bench.main(["--stepcost", str(BENCH_STEPS), "--reps", str(REPS),
+                                       "--json", os.path.join(OUT_DIR,
+                                                              "kernel_bench_stepcost256.json")])
+            torch.cuda.synchronize()
+        finally:
+            wide.stepcost_cuda = launch6
+        bench_launches = launch_counts()
+        cudalib.check_kernel_errors(dev)
+        emit({"kernel_bench": table})
+        info.update(kernel_bench_launches=bench_launches)
+        if bench_launches["stepcost"] <= 0:
+            raise RuntimeError(f"kernel_bench --stepcost launched no K6: {bench_launches}")
+        if sorted(bench_cases) != sorted(c for c, _ in wide.STEPCOST_CONFIGS):
+            raise RuntimeError(f"kernel_bench's K6 launches were not captured: "
+                               f"{sorted(bench_cases)}")
+        t0 = time.perf_counter()
+        bench_checks, full_stats = {}, {}
+        for cname, (kbvh, args, kw, out_k) in bench_cases.items():
+            if kw["steps"] != BENCH_STEPS:
+                raise RuntimeError(f"kernel_bench ran K6 at {kw['steps']} steps")
+            p_ms, out_p = cuda_ms(lambda: wide.stepcost_plain(
+                kbvh.node_rows, kbvh.tri_rows, *args, group=kbvh.group_size,
+                arity=kbvh.arity, stats=full_stats if cname == "full" else None, **kw))
+            bench_checks[cname] = dict(plain_ms=p_ms, **compare_exact(out_k, out_p))
+            del out_p
+        n_bench = int(table["stepcost_rays"])
+        full_kb = bench_cases["full"][0]
+        b_ms, b_by, ops, nbytes = bound(full_stats, n_bench, full_kb.tri_rows.shape[1],
+                                        full_kb.group_size)
+        del bench_cases
+        info.update(kernel_bench_cases=bench_checks,
+                    kernel_bench_check_s=round(time.perf_counter() - t0, 3))
+        bad = sum(v["mismatch"] for v in bench_checks.values())
+        if bad:
+            raise RuntimeError(f"K6 mismatches on kernel_bench's batch: {bad}")
+        kernel_rows.append({
+            "name": "K6 wide step-cost instrument", "route": "cuda",
+            "source": "tpurt_torch/csrc/wide_stepcost.cu",
+            "replaces": "tpurt/kernels/pallas_wide.py:1384",
+            "launches": bench_launches["stepcost"],
+            "max_abs_err": max(v["max_abs_err"] for v in
+                               list(step_results.values()) + list(bench_checks.values())),
+            "ms": table["stepcost_full_ms"], "plain_ms": bench_checks["full"]["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "rays": n_bench,
+            "steps": BENCH_STEPS, "config": "full",
+            "main_path_rays_checked": sum(v["rays"] for v in bench_checks.values())})
 
     with Phase("golden") as info:
         box = write_box_scene(os.path.join(tmp.name, "box.gltf"))

@@ -1,7 +1,9 @@
 """The CUDA traversal kernels (csrc/wide_traverse.cu, K1 closest hit and K2
 occlusion; csrc/rope_traverse.cu, K3 rope closest hit and K4 rope
-occlusion) against their plain PyTorch versions on the same inputs, and
-the box golden rendered through the wide kernels and through K3. These need an NVIDIA card: they
+occlusion; csrc/wide_octet.cu, K5 multi-walk; csrc/wide_stepcost.cu, K6
+step cost) against their plain PyTorch versions on the same inputs, and
+the box golden rendered through the wide kernels, through K5 and through
+K3. These need an NVIDIA card: they
 are marked `cuda` and skip without one. They import nothing of JAX or
 tpurt, so they also run where neither is installed:
 
@@ -21,7 +23,7 @@ import torch
 from tpurt_torch import film
 from tpurt_torch.bvh.lbvh import build_triangle_bvh
 from tpurt_torch.camera import Camera
-from tpurt_torch.config import RenderConfig, SphereLight
+from tpurt_torch.config import KernelPolicy, RenderConfig, SphereLight
 from tpurt_torch.kernels import cudalib, wide
 from tpurt_torch.kernels.experimental import rope
 from tpurt_torch.renderer import Renderer
@@ -187,3 +189,98 @@ def test_rope_cuda_tensor_gets_the_kernel_or_an_error(dev):
         cudalib.check_kernel_errors(dev)
     cudalib.check_kernel_errors(dev)  # the word was cleared
 
+
+
+def _bits_equal(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+@pytest.mark.parametrize("walks", [2, 4, 8])
+@pytest.mark.parametrize("mode,cell_masks", [("closest", False), ("closest", True),
+                                             ("occlusion", False)])
+@pytest.mark.parametrize("n", [1, 1000, 70000])
+def test_octet_kernel_matches_plain(dev, walks, mode, cell_masks, n):
+    """K5 against octet_plain: the same walk order, so t, prim and the
+    flag are bit-equal on every ray; a ragged last walk; inactive rays
+    miss."""
+    kb = _masked_bvh(dev)
+    o, d = _rays(n, seed=n + walks)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    t_min = torch.zeros(n, device=dev)
+    far = 3.0 if mode == "occlusion" else 1e9
+    lim = np.where(np.arange(n) % 5 == 0, -3e38, far).astype(np.float32)
+    t_limit = torch.from_numpy(lim).to(dev)
+    kw = dict(occlusion=mode == "occlusion", all_definite=False, cell_masks=cell_masks)
+    before = dict(wide.LAUNCHES)
+    out_k = wide.octet_cuda(kb, o, d, t_min, t_limit, walks=walks, **kw)
+    cudalib.check_kernel_errors(dev)
+    assert wide.LAUNCHES["octet_" + mode] == before["octet_" + mode] + 1
+    assert wide.LAUNCHES[mode] == before[mode]
+    out_p = wide.octet_plain(kb.node_rows, kb.tri_rows, o, d, t_min, t_limit, walks=walks,
+                             group=kb.group_size, arity=kb.arity, **kw)
+    for a, b in zip(out_k, out_p):
+        assert _bits_equal(a, b)
+    assert bool((out_k[1][torch.from_numpy(lim < 0).to(dev)] == -1).all())
+
+
+@pytest.mark.parametrize("config", [name for name, _ in wide.STEPCOST_CONFIGS])
+@pytest.mark.parametrize("n", [1000, 70000])
+def test_stepcost_kernel_matches_plain(dev, config, n):
+    """K6 against stepcost_plain for each kernel_bench configuration: t,
+    prim and acc bit-equal."""
+    kb = _masked_bvh(dev)
+    o, d = _rays(n, seed=n + 3)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    t_min = torch.zeros(n, device=dev)
+    t_limit = torch.full((n,), 1e9, device=dev)
+    toggles = dict(wide.STEPCOST_CONFIGS)[config]
+    before = wide.LAUNCHES["stepcost"]
+    out_k = wide.stepcost_cuda(kb, o, d, t_min, t_limit, steps=64, **toggles)
+    torch.cuda.synchronize(dev)
+    assert wide.LAUNCHES["stepcost"] == before + 1
+    out_p = wide.stepcost_plain(kb.node_rows, kb.tri_rows, o, d, t_min, t_limit, steps=64,
+                                group=kb.group_size, arity=kb.arity, **toggles)
+    for a, b in zip(out_k, out_p):
+        assert _bits_equal(a, b)
+
+
+def test_stepcost_full_equals_k1(dev):
+    """Every phase on and steps covering the longest walk: K6's t and prim
+    equal K1's bit for bit."""
+    kb = _masked_bvh(dev)
+    o, d = _rays(20000, seed=21)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    t_min = torch.zeros(20000, device=dev)
+    t_limit = torch.full((20000,), 1e9, device=dev)
+    stats = {}
+    wide.traverse_plain(kb.node_rows, kb.tri_rows, o, d, t_min, t_limit, group=kb.group_size,
+                        arity=kb.arity, occlusion=False, all_definite=False, cell_masks=False,
+                        stats=stats)
+    steps = int((stats["node_visits"] + stats["leaf_visits"]).max())
+    t1, p1, _ = wide.traverse_cuda(kb, o, d, t_min, t_limit, occlusion=False,
+                                   all_definite=False, cell_masks=False)
+    t6, p6, _ = wide.stepcost_cuda(kb, o, d, t_min, t_limit, steps=steps)
+    cudalib.check_kernel_errors(dev)
+    assert _bits_equal(t6, t1) and _bits_equal(p6, p1)
+
+
+def test_box_golden_through_octet(dev):
+    """The box golden with KernelPolicy(octet_closest=8, octet_occlusion=8):
+    K5 runs, K1 and K2 do not, and the image is the golden."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_box_scene(os.path.join(tmp, "box.gltf"))
+        cam = Camera.from_angles([1.5, 1.2, 2.0], float(np.arctan2(-1.5, -2.0)), -0.45)
+        cfg = RenderConfig(width=64, height=48, max_samples=8,
+                           kernel=KernelPolicy(octet_closest=8, octet_occlusion=8))
+        r = Renderer.from_gltf(path, config=cfg, camera=cam, device=dev,
+                               lights=[SphereLight((2.0, 2.0, 2.0), 0.3, (1.0, 0.9, 0.8), 50.0)])
+        before = dict(wide.LAUNCHES)
+        img = r.render(8).cpu().numpy()
+    after = dict(wide.LAUNCHES)
+    assert after["octet_closest"] > before["octet_closest"]
+    assert after["octet_occlusion"] > before["octet_occlusion"]
+    assert after["closest"] == before["closest"] and after["occlusion"] == before["occlusion"]
+    golden = np.load(os.path.join(GOLDEN_DIR, "box_64x48_8spp.npz"))["accum"]
+    assert film.rmse(img, golden) < 1e-5

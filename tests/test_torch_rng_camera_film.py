@@ -124,22 +124,25 @@ def test_save_png_round_trips(tmp_path):
 
 
 def test_render_config_defaults_match_tpurt():
-    """Every port RenderConfig field has tpurt's default; the fields the port
-    leaves out are tpurt's TPU kernel policy, its fixed-capacity
-    compaction knobs, which never change a rendered value, and two fields
-    that nothing reads (samples_per_launch, t_min)."""
+    """Every port RenderConfig field has tpurt's default (the kernel policy
+    carried across with convert.policy_from_tpurt); the fields the port
+    leaves out are tpurt's fixed-capacity compaction knobs, which never
+    change a rendered value, and two fields that nothing reads
+    (samples_per_launch, t_min)."""
     import dataclasses
 
     from tpurt import config as jconfig
     from tpurt_torch import config as tconfig
+    from tpurt_torch.convert import policy_from_tpurt
 
-    left_out = {"kernel", "compact_ladder", "shade_frac", "retrace_frac",
+    left_out = {"compact_ladder", "shade_frac", "retrace_frac",
                 "retrace_gather", "shade_gather", "ladder_gather",
                 "samples_per_launch", "t_min"}
     jf = {f.name: f.default for f in dataclasses.fields(jconfig.RenderConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(tconfig.RenderConfig)}
     assert set(jf) - set(tf) == left_out
     assert set(tf) <= set(jf)
+    jf["kernel"] = policy_from_tpurt(dataclasses.asdict(jf["kernel"]))
     for name, default in tf.items():
         assert default == jf[name], name
     assert tconfig.RenderConfig().tan_half_fov == jconfig.RenderConfig().tan_half_fov

@@ -52,10 +52,12 @@ class TriBVH(NamedTuple):
         return self.tri_order.shape[0] // self.bvh.leaf_prim.shape[0]
 
 
-def build_triangle_bvh(tri_pos: np.ndarray, group_size: int = 8) -> TriBVH:
+def build_triangle_bvh(tri_pos: np.ndarray, group_size: int = 4) -> TriBVH:
     """Host triangle BVH (tpurt/bvh/lbvh.py::_build_triangle_bvh_host):
     binned SAH, or Morton grouping + Karras when SAH overflows its leaf
-    budget. Raises if the native library cannot be built."""
+    budget. `group_size` defaults to 4, as tpurt's does, so a call without
+    it builds tpurt's leaves. Raises if the native library cannot be
+    built."""
     tri_np = np.asarray(tri_pos, np.float32)
     t = tri_np.shape[0]
     pmin = tri_np.min(axis=1)

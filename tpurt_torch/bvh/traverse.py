@@ -2,11 +2,14 @@
 tpurt/bvh/traverse.py).
 
 `closest_hit` dispatches on the BVH's type, as tpurt's does: the wide
-tables (WideKernelBVH) go to K1, the rope tables (rope.KernelBVH) to
-`intersect_scene`, the rope walk, which runs K3 (it also takes a TriBVH
-or a plain LBVH and packs their tables). `occlusion_hit` takes the wide
-tables only, as tpurt's does: the rope path resolves shadow rays with a
-full closest-hit trace in the integrator. `intersect_brute_force` is the
+tables (WideKernelBVH) go to K1, or to the multi-walk K5 when the
+KernelPolicy asks for it (`octet_closest`), the rope tables
+(rope.KernelBVH) to `intersect_scene`, the rope walk, which runs K3 (it
+also takes a TriBVH or a plain LBVH and packs their tables; the policy
+does not apply to it, as in tpurt). `occlusion_hit` takes the wide
+tables only, as tpurt's does (K2, or K5 with `octet_occlusion`): the
+rope path resolves shadow rays with a full closest-hit trace in the
+integrator. `intersect_brute_force` is the
 test oracle.
 
 On the wide path, above 2048 rays the rays are sorted by an (octant,
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from tpurt_torch.bvh.lbvh import LBVH, TriBVH, morton3
+from tpurt_torch.config import DEFAULT_KERNEL_POLICY, KernelPolicy
 from tpurt_torch.kernels import wide
 from tpurt_torch.kernels.experimental import rope
 from tpurt_torch.kernels.intersect import (
@@ -155,13 +159,15 @@ def _unsort(order, cols):
 
 def closest_hit(kbvh, lights, o, d, t_min, t_max,
                 include_spheres=True, active=None, sort_rays=True,
-                return_pending=False):
+                return_pending=False, policy: KernelPolicy = DEFAULT_KERNEL_POLICY):
     """Closest hit plus the analytic sphere lights: over the wide tables
-    (K1), or by the rope walk over rope tables (`intersect_scene`, K3).
-    With `return_pending` returns (Hit, pending): pending marks committed
-    triangle hits that still need the host texture tap (None when the
-    traversal ran no cell tests: the wide tables without mask columns,
-    and the rope walk; the caller then runs the full host alpha test)."""
+    (K1, or K5 with `policy.octet_closest` walks), or by the rope walk
+    over rope tables (`intersect_scene`, K3). With `return_pending`
+    returns (Hit, pending): pending marks committed triangle hits that
+    still need the host texture tap (None when the traversal ran no cell
+    tests: `policy.cell_masks_closest` off, the wide tables without mask
+    columns, and the rope walk; the caller then runs the full host alpha
+    test)."""
     if isinstance(kbvh, rope.KernelBVH):
         hit = intersect_scene(kbvh, None, lights, o, d, t_min, t_max,
                               include_spheres=include_spheres, active=active)
@@ -171,20 +177,20 @@ def closest_hit(kbvh, lights, o, d, t_min, t_max,
     n = o.shape[0]
     if active is None:
         active = torch.ones(n, dtype=torch.bool, device=o.device)
+    cell_masks = return_pending and policy.cell_masks_closest
+    kw = dict(cell_masks=cell_masks, octet=policy.octet_closest)
     if sort_rays and n > SORT_MIN_RAYS:
         key = _octant_morton_key(kbvh, o, d, active)
         order, (op, dp, tp, ap) = _sort_rays(key, (o, d, t_min, active))
-        out = wide.traverse_packets(kbvh, op, dp, tp, t_max, ap,
-                                    cell_masks=return_pending)
+        out = wide.traverse_packets(kbvh, op, dp, tp, t_max, ap, **kw)
         t, prim, u, v = _unsort(order, out[:4])
-        pending = out[4] if return_pending else None
+        pending = out[4] if cell_masks else None
         if pending is not None:
             (pending,) = _unsort(order, (pending,))
     else:
-        out = wide.traverse_packets(kbvh, o, d, t_min, t_max, active,
-                                    cell_masks=return_pending)
+        out = wide.traverse_packets(kbvh, o, d, t_min, t_max, active, **kw)
         t, prim, u, v = out[:4]
-        pending = out[4] if return_pending else None
+        pending = out[4] if cell_masks else None
     kind = torch.where(prim >= 0, KIND_TRIANGLE, KIND_MISS).to(torch.int32)
     t = torch.where(prim >= 0, t, torch.full_like(t, float(t_max)))
     if include_spheres and lights.shape[0] > 0:
@@ -197,10 +203,12 @@ def closest_hit(kbvh, lights, o, d, t_min, t_max,
 
 
 def occlusion_hit(kbvh, o, d, t_min, t_limit, active, scene_has_alpha: bool,
-                  sort_rays=True, ray_class=None):
-    """Occlusion over the wide tables (K2). Returns (blocked, Hit of the
-    closest uncertain hit, kind TRIANGLE where one exists). Like tpurt's,
-    it takes the wide tables only."""
+                  sort_rays=True, ray_class=None,
+                  policy: KernelPolicy = DEFAULT_KERNEL_POLICY):
+    """Occlusion over the wide tables (K2, or K5 with
+    `policy.octet_occlusion` walks). Returns (blocked, Hit of the closest
+    uncertain hit, kind TRIANGLE where one exists). Like tpurt's, it takes
+    the wide tables only."""
     if not isinstance(kbvh, wide.WideKernelBVH):
         raise TypeError("occlusion_hit needs the wide tables; the rope path traces "
                         "shadow rays with closest_hit")
@@ -210,10 +218,12 @@ def occlusion_hit(kbvh, o, d, t_min, t_limit, active, scene_has_alpha: bool,
     if sort_rays and n > SORT_MIN_RAYS:
         key = _octant_morton_key(kbvh, o, d, active, ray_class)
         order, (op, dp, tp, tl, ap) = _sort_rays(key, (o, d, t_min, t_limit, active))
-        out = wide.occlusion_packets(kbvh, op, dp, tp, tl, ap, scene_has_alpha)
+        out = wide.occlusion_packets(kbvh, op, dp, tp, tl, ap, scene_has_alpha,
+                                     octet=policy.octet_occlusion)
         blocked, t, prim, u, v = _unsort(order, out)
     else:
         blocked, t, prim, u, v = wide.occlusion_packets(
-            kbvh, o, d, t_min, t_limit, active, scene_has_alpha)
+            kbvh, o, d, t_min, t_limit, active, scene_has_alpha,
+            octet=policy.octet_occlusion)
     kind = torch.where(prim >= 0, KIND_TRIANGLE, KIND_MISS).to(torch.int32)
     return blocked, Hit(t=t, kind=kind, prim=prim, u=u, v=v)

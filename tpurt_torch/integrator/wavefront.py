@@ -133,7 +133,7 @@ def _trace(scene, bvh, o, d, t_min0, active, include_spheres, cfg: RenderConfig,
     hit, pending = closest_hit(bvh, scene.lights, o, d, t_min0,
                                cfg.t_max, include_spheres=include_spheres,
                                active=active, sort_rays=sort_rays,
-                               return_pending=True)
+                               return_pending=True, policy=cfg.kernel)
     if not has_alpha:
         return hit
     use_pending = pending is not None
@@ -147,7 +147,8 @@ def _trace(scene, bvh, o, d, t_min0, active, include_spheres, cfg: RenderConfig,
         nh, npend = closest_hit(bvh, scene.lights, o[idx], d[idx],
                                 t_min[idx], cfg.t_max, include_spheres=include_spheres,
                                 active=torch.ones_like(idx, dtype=torch.bool),
-                                sort_rays=sort_rays, return_pending=True)
+                                sort_rays=sort_rays, return_pending=True,
+                                policy=cfg.kernel)
         hit = _hit_scatter(hit, idx, nh)
         pend_full = None
         if use_pending:
@@ -181,7 +182,7 @@ def _trace_shadow(scene, bvh, o, d, active, throughput, cfg: RenderConfig,
         if ray_class is None:
             ray_class = (torch.arange(n, device=dev) >= (n // 2)).to(torch.int32)
         blocked, hit = occlusion_hit(bvh, o, d, t_min0, t_limit, active, has_alpha,
-                                     ray_class=ray_class)
+                                     ray_class=ray_class, policy=cfg.kernel)
         if has_alpha:
             unc = active & ~blocked & (hit.prim >= 0)
             # with mask columns, the kernel's uncertain lanes are exactly the
@@ -196,7 +197,8 @@ def _trace_shadow(scene, bvh, o, d, active, throughput, cfg: RenderConfig,
                 t_min = torch.where(rej, _retrace_tmin(hit.t), t_min)
                 idx = _nz(rej)
                 b_c, h_c = occlusion_hit(bvh, o[idx], d[idx], t_min[idx], t_limit[idx],
-                                         torch.ones_like(idx, dtype=torch.bool), has_alpha)
+                                         torch.ones_like(idx, dtype=torch.bool), has_alpha,
+                                         policy=cfg.kernel)
                 b2 = torch.zeros_like(rej)
                 b2[idx] = b_c
                 hit = _hit_scatter(hit, idx, h_c)
@@ -488,7 +490,8 @@ def trace_paths(scene: DeviceScene, bvh, o, d, state, *, cfg: RenderConfig,
         hit_c = _trace(scene, bvh, o[ti], d[ti],
                        torch.zeros(ti.numel(), dtype=torch.float32, device=dev),
                        torch.ones(ti.numel(), dtype=torch.bool, device=dev),
-                       wave_idx > 0, cfg, has_alpha, sort_rays=wave_idx > 0)
+                       wave_idx > 0, cfg, has_alpha,
+                       sort_rays=wave_idx > 0 or cfg.kernel.sort_wave0)
         hit = _hit_scatter(_miss_hit(n, cfg.t_max, dev), ti, hit_c)
 
         is_tri = active & (hit.kind == KIND_TRIANGLE)

@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
 
 # bits of the error word, one per fault a kernel can detect
-ERR_WIDE_STACK = 1  # wide_traverse.cu: a per-ray stack overflowed
+ERR_WIDE_STACK = 1  # wide_traverse.cu, wide_octet.cu: a wide stack overflowed
 ERR_ROPE_STEPS = 2  # rope_traverse.cu: a walk hit its 4*M step cap
 _ERR_TEXT = {ERR_WIDE_STACK: "wide traversal stack overflow",
              ERR_ROPE_STEPS: "rope walk exceeded its 4*M step cap (a broken rope link)"}

@@ -8,7 +8,9 @@ later slice.
 
 Two render paths, chosen at construction:
 
-- the wide path (the default): the 16-ary wide tables, traced by K1/K2;
+- the wide path (the default): the 16-ary wide tables, traced by K1/K2,
+  or by the multi-walk K5 when `config.kernel` sets `octet_closest` /
+  `octet_occlusion` (the integrator reads the policy per dispatch);
 - the rope path: the binary TriBVH's rope tables, traced by K3, with
   shadow rays resolved by a full closest-hit trace. It is taken when the
   caller passes a TriBVH as `bvh` (tpurt's goldens come from this path:
