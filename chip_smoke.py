@@ -8,15 +8,16 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
   device   card name, power limit, torch version; no card is an error
   build    nvcc the four CUDA sources (wide_traverse.cu, rope_traverse.cu,
            wide_octet.cu, wide_stepcost.cu) and g++ the native host core,
-           all at once
+           all at once; ptxas's registers, stack frame and spills for each
+           instantiation of K1/K2
   scene    write the bench's Sponza-like scene (~215k triangles), load it,
-           build the renderer at 1920x1080 on the card, time each host step
+           build the renderer at 1920x1080 on the card (its wide tables and
+           K1/K2's card tables), time each host step
   kernels  hold K1 (closest hit: 65,536 camera rays, 65,536 bounce rays with
            cell masks) and K2 (occlusion: 65,536 shadow rays to the three
            lights) against their plain PyTorch versions on the same inputs:
-           t bit-equal wherever prim agrees, prim different only on exact-t
-           ties, pending and blocked equal; CUDA-event timings of both.
-           Then K3 (rope closest hit) and K4 (rope occlusion) on the same
+           0 rays with different t bits, prim or flag (the same walk
+           order); CUDA-event timings of both. Then K3 (rope closest hit) and K4 (rope occlusion) on the same
            three batches, over the rope tables of the same G=8 TriBVH with
            the mask column, against their plain versions by the same rule
            (u, v bit-equal too), and across: K3 against K1 (same cell
@@ -29,7 +30,15 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            The warm-up sample keeps the inputs and kernel outputs of the
            first camera wave, bounce wave, alpha re-trace, shadow wave and
            shadow re-trace it launches; after the timed samples each is
-           held against the plain version with the rule of `kernels`
+           held against the plain version with the rule of `kernels`, and
+           K1/K2 are timed on each (whole-frame waves: ns per ray and the
+           bound from the plain version's test counts)
+  trace    torch.profiler (CPU and CUDA activities) over one more sample of
+           the same render: its wall seconds, the device's busy share (the
+           union of the device's kernel, copy and set intervals over the
+           wall time), K1 and K2 launches, device ms and share of the
+           sample, and the ten kernels with the most device time; no K1
+           or K2 in the trace fails the phase
   rope     the rope path: Renderer(..., bvh=build_triangle_bvh(tri, 8)) on
            the same scene, camera and lights, 1 warm-up and 2 timed samples
            with every launch counter zeroed just before; K3 must launch, K1,
@@ -78,6 +87,7 @@ Pillow, no prebuilt artefact.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -231,6 +241,65 @@ def compare_exact(k, p):
             "flag_set": int((k[2] != 0).sum()) if k[2].dtype == torch.float32 else None}
 
 
+def k12_resources(report):
+    """ptxas's report of wide_traverse.cu keyed by K1/K2 instantiation
+    (wide_walk<Occlusion, Masks, TopInRegs>)."""
+    out = {}
+    for name, res in report.items():
+        m = re.search(r"wide_walkILb(\d)ELb(\d)ELb(\d)E", name)
+        if m:
+            key = (f"K{1 + int(m.group(1))} masks={m.group(2)} "
+                   f"top={'registers' if m.group(3) == '1' else 'shared'}")
+            out[key] = res
+    return out
+
+
+def k12_of(kernel_name):
+    """'K1' or 'K2' for a traced wide_walk kernel (demangled or not),
+    else None."""
+    m = re.search(r"wide_walk(?:<|ILb)(true|false|1|0)", kernel_name)
+    if m is None:
+        return None
+    return "K2" if m.group(1) in ("true", "1") else "K1"
+
+
+def trace_summary(prof, wall_s):
+    """From a torch.profiler run over one sample: the device's busy share
+    (the union of its kernel, copy and set intervals over the wall time),
+    K1 and K2 launches, device ms and share of the sample, and the ten
+    kernels with the most device time."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("the trace holds no device activity")
+    busy_us, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    by_name = {}
+    for e in events:
+        acc = by_name.setdefault(e.name, [0, 0.0])
+        acc[0] += 1
+        acc[1] += e.time_range.end - e.time_range.start
+    total_us = sum(v[1] for v in by_name.values())
+    out = {"device_events": len(events), "device_busy_share": busy_us / (wall_s * 1e6),
+           "device_busy_ms": busy_us / 1e3, "device_event_ms": total_us / 1e3}
+    for k in ("K1", "K2"):
+        sel = [v for name, v in by_name.items() if k12_of(name) == k]
+        ms = sum(v[1] for v in sel) / 1e3
+        out[k] = {"launches": sum(v[0] for v in sel), "device_ms": ms,
+                  "share_of_sample": ms / (wall_s * 1e3)}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    out["top_kernels"] = [{"name": name[:120], "count": v[0], "device_ms": v[1] / 1e3,
+                           "share_of_device": v[1] / total_us} for name, v in top]
+    return out
+
+
 def timed_kernel(kern):
     """Median CUDA-event ms of REPS runs of `kern`."""
     return median([cuda_ms(kern)[0] for _ in range(REPS)])
@@ -336,6 +405,7 @@ def main():
         if errors:
             raise RuntimeError("; ".join(errors))
         info.update(times)
+        info["k1_k2_ptxas"] = k12_resources(cudalib.kernel_resources("wide_traverse"))
 
     os.makedirs(OUT_DIR, exist_ok=True)
     tmp = tempfile.TemporaryDirectory()
@@ -352,8 +422,10 @@ def main():
                     wide_nodes=int(kb.node_rows.shape[1]),
                     leaves=int(kb.tri_rows.shape[0]),
                     leaf_row_floats=int(kb.tri_rows.shape[1]),
-                    stack_bound=kb.stack_bound,
+                    stack_bound=kb.stack_bound, depth_bound=kb.depth_bound,
                     table_mb=round((kb.node_rows.numel() + kb.tri_rows.numel()) * 4 / 2**20, 2),
+                    card_table_mb=round((kb.card.nodes.numel() + kb.card.leaves.numel()) * 4
+                                        / 2**20, 2),
                     has_alpha=r.has_alpha, scene_write_s=round(write_s, 3),
                     **{k: round(v, 3) for k, v in r.timings.items()})
 
@@ -419,7 +491,7 @@ def main():
             out_k = kern()
             out_p = plain()
             cudalib.check_kernel_errors(dev)
-            cmp = compare(mode, out_k, out_p)
+            cmp = compare_exact(out_k, out_p)
             b_ms, b_by, ops, nbytes = bound(stats, N_RAYS, kb.tri_rows.shape[1],
                                             kb.group_size)
             k_ms, p_ms = timed_pair(kern, plain)
@@ -432,7 +504,7 @@ def main():
         info.update(cases=results)
         bad = sum(v["mismatch"] for v in results.values())
         if bad:
-            raise RuntimeError(f"kernel/plain mismatches beyond exact-t ties: {bad}")
+            raise RuntimeError(f"K1/K2 against the plain version: {bad} rays differ")
         if results["bounce"]["flag_set"] == 0:
             raise RuntimeError("no pending hit in the bounce batch: cell masks not exercised")
 
@@ -585,14 +657,23 @@ def main():
         kernel_rows[0]["launches"] = launches["closest"]
         kernel_rows[1]["launches"] = launches["occlusion"]
 
+        # each captured wave against the plain version, then K1/K2 timed on
+        # it: the main path's own shapes (whole-frame waves)
         t0 = time.perf_counter()
         main_cases = {}
         for name, (args, kw, out_k) in captured.items():
-            out_p = wide.traverse_plain(kb.node_rows, kb.tri_rows, *args, group=kb.group_size,
-                                        arity=kb.arity, **kw)
-            main_cases[name] = compare("occlusion" if kw["occlusion"] else "closest",
-                                       out_k, out_p)
+            stats = {}
+            p_ms, out_p = cuda_ms(lambda args=args, kw=kw, stats=stats: wide.traverse_plain(
+                kb.node_rows, kb.tri_rows, *args, group=kb.group_size, arity=kb.arity,
+                stats=stats, **kw))
+            row = compare_exact(out_k, out_p)
             del out_p
+            n = int(args[0].shape[0])
+            ms = timed_kernel(lambda args=args, kw=kw: wide.traverse_cuda(kb, *args, **kw))
+            b_ms, b_by, _, _ = bound(stats, n, kb.tri_rows.shape[1], kb.group_size)
+            main_cases[name] = dict(row, ms=ms, ns_per_ray=ms * 1e6 / n, plain_ms=p_ms,
+                                    bound_ms=b_ms, bound_by=b_by)
+        cudalib.check_kernel_errors(dev)
         info.update(main_path_cases=main_cases,
                     main_path_check_s=round(time.perf_counter() - t0, 3))
         for want in ("camera_wave", "bounce_wave", "shadow_wave"):
@@ -600,13 +681,42 @@ def main():
                 raise RuntimeError(f"the render launched no {want}: {sorted(main_cases)}")
         bad = sum(v["mismatch"] for v in main_cases.values())
         if bad:
-            raise RuntimeError(f"main-path kernel/plain mismatches beyond exact-t ties: {bad}")
+            raise RuntimeError(f"main-path K1/K2 against the plain version: {bad} rays differ")
         for row, modes in ((kernel_rows[0], ("camera_wave", "bounce_wave", "alpha_retrace")),
                            (kernel_rows[1], ("shadow_wave", "shadow_retrace"))):
-            errs = [main_cases[m]["max_abs_err"] for m in modes if m in main_cases]
-            row["max_abs_err"] = max([row["max_abs_err"], *errs])
-            row["main_path_rays_checked"] = sum(main_cases[m]["rays"] for m in modes
-                                                if m in main_cases)
+            waves = {m: main_cases[m] for m in modes if m in main_cases}
+            row["max_abs_err"] = max([row["max_abs_err"]]
+                                     + [v["max_abs_err"] for v in waves.values()])
+            row["main_path_rays_checked"] = sum(v["rays"] for v in waves.values())
+            row["main_path_waves"] = {m: {k: v[k] for k in ("rays", "ms", "ns_per_ray",
+                                                          "bound_ms", "bound_by", "plain_ms")}
+                                      for m, v in waves.items()}
+
+    with Phase("trace") as info:
+        # one more sample of the same render under the profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        zero_launch_counts()
+        done = r.sample_count
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            r.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = launch_counts()
+        if r.sample_count != done + 1:
+            raise RuntimeError(f"the traced step rendered {r.sample_count - done} samples")
+        summary = trace_summary(prof, wall)
+        info.update(sample_wall_s=wall, launches=launches, **summary)
+        for k, mode in (("K1", "closest"), ("K2", "occlusion")):
+            if summary[k]["launches"] == 0:
+                raise RuntimeError(f"the trace of a sample shows no {k} kernel")
+            if summary[k]["launches"] != launches[mode]:
+                raise RuntimeError(f"{k}: {summary[k]['launches']} kernels traced, "
+                                   f"{launches[mode]} launches counted")
+        for row, k in ((kernel_rows[0], "K1"), (kernel_rows[1], "K2")):
+            row["trace_per_sample"] = summary[k]
 
     with Phase("rope") as info:
         wide_img = accum.cpu().numpy()

@@ -9,10 +9,11 @@ tpurt, so they also run where neither is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
-The kernel is built with --fmad=false and repeats the plain version's
-expression order, so `t` is bit-equal on every ray; `prim` may differ
-only on an exact-t tie."""
+The kernels are built with --fmad=false and repeat the plain version's
+expression order; K1/K2, K3/K4, K5 and K6 each walk in their plain
+version's order, so t, prim and the flags are bit-equal on every ray."""
 
+import dataclasses
 import os
 import tempfile
 
@@ -58,10 +59,23 @@ def _masked_bvh(dev, n_tris=500, seed=3):
                                      tri_alpha_opaque=opaque, device=dev)
 
 
+@pytest.fixture
+def stack_top():
+    """Restores K1/K2's stack-top setting after a test that changes it."""
+    saved = wide.K12_STACK_TOP
+    yield
+    wide.K12_STACK_TOP = saved
+
+
+@pytest.mark.parametrize("top", ["registers", "shared"])
 @pytest.mark.parametrize("mode,cell_masks", [("closest", False), ("closest", True),
                                              ("occlusion", False)])
 @pytest.mark.parametrize("n", [1, 1000, 70000])
-def test_kernel_matches_plain(dev, mode, cell_masks, n):
+def test_kernel_matches_plain(dev, stack_top, top, mode, cell_masks, n):
+    """K1/K2 against traverse_plain, with the stack top in registers and in
+    shared memory: t (bits), prim and the flag equal on every ray (the
+    hit-mask walk visits in the plain version's order); inactive rays
+    miss."""
     kb = _masked_bvh(dev)
     o, d = _rays(n, seed=n)
     o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
@@ -69,17 +83,95 @@ def test_kernel_matches_plain(dev, mode, cell_masks, n):
     lim = np.where(np.arange(n) % 5 == 0, -3e38, 1e9).astype(np.float32)  # some inactive
     t_limit = torch.from_numpy(lim).to(dev)
     kw = dict(occlusion=mode == "occlusion", all_definite=False, cell_masks=cell_masks)
+    wide.K12_STACK_TOP = top
     before = dict(wide.LAUNCHES)
     tk, pk, fk = wide.traverse_cuda(kb, o, d, t_min, t_limit, **kw)
     cudalib.check_kernel_errors(dev)
     assert wide.LAUNCHES[mode] == before[mode] + 1
     tp, pp, fp = wide.traverse_plain(kb.node_rows, kb.tri_rows, o, d, t_min, t_limit,
                                      group=kb.group_size, arity=kb.arity, **kw)
-    # t bit-equal on every ray; a differing prim is then an exact-t tie
     assert bool(torch.equal(tk.view(torch.int32), tp.view(torch.int32)))
-    assert int((pk != pp).sum()) <= max(2, n // 100)
-    assert bool(torch.equal(fk, fp))
+    assert bool(torch.equal(pk, pp))
+    assert bool(torch.equal(fk.view(torch.int32), fp.view(torch.int32)))
     assert bool((pk[torch.from_numpy(lim < 0).to(dev)] == -1).all())
+
+
+@pytest.mark.parametrize("cell_masks", [False, True])
+def test_kernel_matches_plain_whole_frame(dev, cell_masks):
+    """K1 on the 2,073,600 camera rays of the bench camera at 1920x1080 on
+    the mini Sponza (alpha masks on): t bits, prim and pending equal to
+    traverse_plain on every ray."""
+    from tpurt_torch.camera import camera_rays_for_rows
+    from tpurt_torch.scene.procedural import write_sponza_like_scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_sponza_like_scene(os.path.join(tmp, "s.gltf"), columns=2, foliage=8)
+        cfg = RenderConfig(width=1920, height=1080)
+        r = Renderer.from_gltf(path, config=cfg, device=dev,
+                               camera=Camera.from_angles([0.0, -4.0, 0.0], 0.7, -0.1))
+    kb = r.bvh
+    assert kb.use_masks
+    o, d, _ = camera_rays_for_rows(r.camera, 0, 1080, 1920, 1080, cfg.tan_half_fov, 0,
+                                   cfg.seed, device=dev)
+    o, d = o.contiguous(), d.contiguous()
+    n = o.shape[0]
+    assert n == 2073600
+    t_min = torch.zeros(n, device=dev)
+    t_limit = torch.full((n,), 1e9, device=dev)
+    kw = dict(occlusion=False, all_definite=False, cell_masks=cell_masks)
+    tk, pk, fk = wide.traverse_cuda(kb, o, d, t_min, t_limit, **kw)
+    cudalib.check_kernel_errors(dev)
+    tp, pp, fp = wide.traverse_plain(kb.node_rows, kb.tri_rows, o, d, t_min, t_limit,
+                                     group=kb.group_size, arity=kb.arity, **kw)
+    assert int((pk >= 0).sum()) > n // 2
+    assert bool(torch.equal(tk.view(torch.int32), tp.view(torch.int32)))
+    assert bool(torch.equal(pk, pp))
+    assert bool(torch.equal(fk.view(torch.int32), fp.view(torch.int32)))
+
+
+def test_wrapper_rejects_missing_or_misaligned_card_tables(dev):
+    kb = _masked_bvh(dev, n_tris=50)
+    o = torch.zeros((4, 3), device=dev)
+    z = torch.zeros(4, device=dev)
+    kw = dict(occlusion=False, all_definite=False, cell_masks=False)
+    with pytest.raises(ValueError, match="no card tables"):
+        wide.traverse_cuda(dataclasses.replace(kb, card=None), o, o, z, z, **kw)
+    flat = torch.zeros(kb.card.nodes.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = flat[1:].view(kb.card.nodes.shape)
+    shifted.copy_(kb.card.nodes)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wide.traverse_cuda(dataclasses.replace(kb, card=wide.CardTables(shifted, kb.card.leaves)),
+                           o, o, z, z, **kw)
+    on_cpu = wide.CardTables(kb.card.nodes.cpu(), kb.card.leaves.cpu())
+    with pytest.raises(ValueError, match="are on cpu"):
+        wide.traverse_cuda(dataclasses.replace(kb, card=on_cpu), o, o, z, z, **kw)
+
+
+@pytest.mark.parametrize("top", ["registers", "shared"])
+def test_tampered_depth_bound_sets_the_stack_bit(dev, stack_top, top):
+    """A depth bound below the walk's deepest stack makes the walk end with
+    the wide-stack bit in the card's error word, which the per-sample check
+    reports and clears."""
+    kb = _masked_bvh(dev)
+    assert kb.depth_bound >= 3
+    n = 20000
+    o, d = _rays(n, seed=5)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    t_min = torch.zeros(n, device=dev)
+    t_limit = torch.full((n,), 1e9, device=dev)
+    wide.K12_STACK_TOP = top
+    cudalib.check_kernel_errors(dev)
+    wide.traverse_cuda(kb, o, d, t_min, t_limit, occlusion=False, all_definite=False,
+                       cell_masks=False)
+    torch.cuda.synchronize(dev)
+    assert int(cudalib.error_word(dev).item()) == 0
+    wide.traverse_cuda(dataclasses.replace(kb, depth_bound=1), o, d, t_min, t_limit,
+                       occlusion=False, all_definite=False, cell_masks=False)
+    torch.cuda.synchronize(dev)
+    assert int(cudalib.error_word(dev).item()) & cudalib.ERR_WIDE_STACK
+    with pytest.raises(RuntimeError, match="wide traversal stack overflow"):
+        cudalib.check_kernel_errors(dev)
+    cudalib.check_kernel_errors(dev)  # the word was cleared
 
 
 def test_wrapper_rejects_bad_inputs(dev):

@@ -19,7 +19,8 @@ import torch
 from tpurt_torch.bvh.lbvh import LBVH, TriBVH
 from tpurt_torch.config import KernelPolicy
 from tpurt_torch.kernels.experimental.rope import KernelBVH
-from tpurt_torch.kernels.wide import MAX_STACK, WideKernelBVH, _stack_bound, collapse_to_wide
+from tpurt_torch.kernels.wide import (MAX_STACK, WideKernelBVH, _depth_bound, _stack_bound,
+                                     card_tables, collapse_to_wide)
 from tpurt_torch.scene.device import DeviceScene, Materials
 
 
@@ -48,12 +49,14 @@ def wide_bvh_from_numpy(arrays: Mapping[str, object], device="cuda") -> WideKern
     bound = _stack_bound(child, wide_of, bvh.num_internal)
     if bound > MAX_STACK:
         raise ValueError(f"stack bound {bound} exceeds {MAX_STACK}")
+    node_rows = _dev(np.asarray(arrays["node_rows"], np.float32), device)
+    tri_rows = _dev(np.asarray(arrays["tri_rows"], np.float32), device)
     return WideKernelBVH(
-        tribvh=tribvh,
-        node_rows=_dev(np.asarray(arrays["node_rows"], np.float32), device),
-        tri_rows=_dev(np.asarray(arrays["tri_rows"], np.float32), device),
+        tribvh=tribvh, node_rows=node_rows, tri_rows=tri_rows,
         tri_pos=_dev(np.asarray(arrays["tri_pos"], np.float32), device),
-        arity=arity, stack_bound=bound)
+        arity=arity, stack_bound=bound,
+        depth_bound=_depth_bound(child, wide_of, bvh.num_internal),
+        card=card_tables(node_rows, tri_rows, tribvh.group_size, arity))
 
 
 def tribvh_from_tpurt(arrays: Mapping[str, object]) -> TriBVH:

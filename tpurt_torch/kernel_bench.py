@@ -3,7 +3,8 @@ benchmarks/kernel_bench.py).
 
     python -m tpurt_torch.kernel_bench [--reps 5] [--json out.json]
         [--rows 256] [--row0 400] [--group G] [--nosort] [--octet N]
-        [--stepcost K] [--device cuda] [--scene scene.gltf]
+        [--k12-stack registers|shared] [--stepcost K] [--device cuda]
+        [--scene scene.gltf]
 
 Times the wide kernels on the three ray batches that set frame time, on
 the bench's Sponza-like interior (215,296 triangles) seen by the bench
@@ -20,7 +21,9 @@ packed in 1024-pixel tiles, as benchmarks/kernel_bench.py builds them:
 Each time is the median of `--reps` CUDA-event timings after one
 warm-up, of the kernel wrapper alone (u/v not recomputed). `--octet N`
 times the multi-walk kernel K5 with N walks per 1024 rays in place of
-K1/K2. `--stepcost K` runs the step-cost instrument K6 on the sorted
+K1/K2. `--k12-stack registers` times K1/K2 with the top entry of their
+hit-mask stack in registers, in place of shared memory with the rest.
+`--stepcost K` runs the step-cost instrument K6 on the sorted
 bounce batch: exactly K steps per ray, once per configuration (full,
 -leaf, -push, -extract, -box, each dropping one phase more), and prints
 each one's ms and ns per ray-step and the per-phase differences.
@@ -78,6 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--octet", type=int, default=0, choices=(0,) + wide.OCTET_WALKS,
                     help="time the multi-walk kernel K5 with N walks per "
                          "1024 rays in place of K1/K2")
+    ap.add_argument("--k12-stack", default="shared", choices=("shared", "registers"),
+                    help="where K1/K2 keep the top entry of their hit-mask stack")
     ap.add_argument("--stepcost", type=int, default=0,
                     help="run the step-cost instrument K6 at this many "
                          "steps per ray (e.g. 256)")
@@ -210,6 +215,14 @@ def stepcost_table(kbvh: wide.WideKernelBVH, o, d, steps: int, reps: int,
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    top, wide.K12_STACK_TOP = wide.K12_STACK_TOP, args.k12_stack
+    try:
+        return _run(args)
+    finally:
+        wide.K12_STACK_TOP = top
+
+
+def _run(args) -> dict:
     r = load_renderer(args.scene, args.device)
     dev = r.device
     kbvh = r.bvh
@@ -240,7 +253,7 @@ def main(argv=None) -> dict:
                                       octet=args.octet, need_uv=False)
 
     results = {"device": card_name(dev), "kernels": kernels, "rays": n, "triangles": tris,
-               "group": kbvh.group_size}
+               "group": kbvh.group_size, "k12_stack_top": args.k12_stack}
     timed = [("coherent_closest", lambda: closest(*b["camera"])),
              ("incoherent_closest", lambda: closest(*b["bounce"]))]
     if args.nosort:

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import tempfile
 import threading
@@ -28,7 +29,7 @@ import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 # bits of the error word, one per fault a kernel can detect
 ERR_WIDE_STACK = 1  # wide_traverse.cu, wide_octet.cu: a wide stack overflowed
@@ -39,6 +40,8 @@ _ERR_TEXT = {ERR_WIDE_STACK: "wide traversal stack overflow",
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ERR_WORDS: Dict[int, torch.Tensor] = {}
+# ptxas's report (-Xptxas=-v) of each source built in this process
+BUILD_LOG: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -64,7 +67,33 @@ def build(name: str, force: bool = False) -> str:
         os.unlink(tmp)
         raise RuntimeError(f"kernel build failed: {' '.join(cmd)}\n{res.stderr}")
     os.replace(tmp, so)
+    BUILD_LOG[name] = res.stdout + res.stderr
     return so
+
+
+def kernel_resources(name: str) -> Dict[str, dict]:
+    """Per kernel of csrc/<name>.cu, as ptxas reported them when this
+    process built it: registers per thread, static shared memory, stack
+    frame and spill bytes. Empty if the library was not built here."""
+    out: Dict[str, dict] = {}
+    cur = None
+    for line in BUILD_LOG.get(name, "").splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([^'\s]+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        for key, pat in (("registers", r"Used (\d+) registers"), ("smem", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                cur[key] = int(m.group(1))
+    return out
 
 
 def load(name: str, argtypes: Dict[str, list]) -> ctypes.CDLL:

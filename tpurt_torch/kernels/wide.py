@@ -4,27 +4,30 @@
 Three parts:
 
 1. Table building, host-side numpy (`collapse_to_wide`, `_stack_bound`,
-   `pack_scene_for_wide_kernel`, `make_wide_kernel_bvh`): the same
-   greedy collapse and the same f32 row layout as tpurt, byte for byte.
-   A node row holds, per direction octant, 16 child boxes sorted near to
-   far, then 16 links and 16 kinds (0 empty, 1 internal, 2 leaf). A
-   leaf row holds G triangles x 9 floats, then (with alpha) the G
-   transparent and G opaque 4x4 cell masks, then G global triangle ids,
-   all as f32-exact integers.
+   `_depth_bound`, `pack_scene_for_wide_kernel`, `make_wide_kernel_bvh`):
+   the same greedy collapse and the same f32 row layout as tpurt, byte
+   for byte. A node row holds, per direction octant, 16 child boxes
+   sorted near to far, then 16 links and 16 kinds (0 empty, 1 internal,
+   2 leaf). A leaf row holds G triangles x 9 floats, then (with alpha)
+   the G transparent and G opaque 4x4 cell masks, then G global triangle
+   ids, all as f32-exact integers. `card_tables` copies the same numbers
+   once per BVH into the layout K1/K2 read with 16-byte loads (see
+   `CardTables`).
 2. The plain PyTorch traversals, each with its kernel's contract and
    arithmetic order: `traverse_plain` (K1/K2: every ray walks its own
    stack, one entry per step, all rays at once, with the per-ray stacks
    as an (N, depth) int tensor), `octet_plain` (K5: walks of 1024/N rays,
    each with one stack over the union of its rays' hits) and
-   `stepcost_plain` (K6: K1's walk for a fixed number of steps with
-   phases switched off).
+   `stepcost_plain` (K6: the per-ray walk with one stack entry per hit
+   child, as K1 walked before its card tables, for a fixed number of
+   steps with phases switched off).
 3. The kernel wrappers `traverse_packets` / `occlusion_packets` (with
    `octet=N` the multi-walk kernel) and `stepcost_packets`. A CPU tensor
    goes to the plain version; a CUDA tensor goes to the hand-written
    kernel, built with nvcc on first use and bound through ctypes:
-   csrc/wide_traverse.cu (K1 closest hit, K2 occlusion),
-   csrc/wide_octet.cu (K5), csrc/wide_stepcost.cu (K6). There is no
-   fallback from one to the other.
+   csrc/wide_traverse.cu (K1 closest hit, K2 occlusion, over the card
+   tables), csrc/wide_octet.cu (K5), csrc/wide_stepcost.cu (K6). There
+   is no fallback from one to the other.
 
 Per-ray semantics of K1/K2. A ray picks the node rows of its own
 direction octant; tpurt's Pallas kernel picks one octant per 1024-ray
@@ -33,8 +36,12 @@ grows under the packet, so the closest hit is the same; which of two
 triangles at exactly the same `t` wins can differ (the tie rule of
 ROADMAP.md). In occlusion mode a ray retires at its first definite
 blocker and otherwise keeps the closest uncertain (alpha-testable) hit.
-K5 walks in tpurt's multi-walk order (`octet_plain`), so it gives K1's t
-(prim but for ties) and, without mask columns, K2's blocked set.
+K1/K2 keep one hit-mask entry per visited node where the plain version
+pushes one entry per hit child; popping the lowest set bit visits the
+children in the same order, so the two agree bit for bit, prim and flag
+included. K5 walks in tpurt's multi-walk order (`octet_plain`), so it
+gives K1's t (prim but for ties) and, without mask columns, K2's
+blocked set.
 """
 
 from __future__ import annotations
@@ -51,8 +58,17 @@ from tpurt_torch.kernels.intersect import mask_cell, ray_triangle_rows
 
 ARITY = 16
 _LANE = 128
-# per-ray stack capacity of the CUDA kernel (local memory, ints)
+# per-ray stack capacity (ints) of the per-child-push walks: the plain
+# versions, K5 and K6
 MAX_STACK = 256
+# K1/K2 keep the hit-mask entries below the top (8 bytes each) in the
+# dynamic shared memory of a 128-thread block, at most 227 KB
+_K12_THREADS = 128
+MAX_DEPTH = 232448 // (_K12_THREADS * 8) + 1
+# where K1/K2 keep their stack's top entry: "shared", with the rest (the
+# default, measured faster: PERF.md), or "registers"; kernel_bench
+# --k12-stack times either
+K12_STACK_TOP = "shared"
 _BIG = 3.0e38
 
 # rays per packet; a multi-walk kernel (K5) cuts it into N walks
@@ -65,6 +81,22 @@ LAUNCHES = {"closest": 0, "occlusion": 0, "octet_closest": 0, "octet_occlusion":
 
 
 @dataclasses.dataclass(frozen=True)
+class CardTables:
+    """tpurt's node and leaf rows, the same numbers laid out for K1/K2's
+    16-byte loads (int32 words; floats as their bits):
+
+    nodes  (8, W, arity, 8): child s of a row is [lo.x lo.y lo.z link]
+           [hi.x hi.y hi.z kind], in the row's near-to-far slot order,
+           empty slots (kind 0) last;
+    leaves (L, G, 12): triangle k is [v0.xyz id] [e1.xyz alpha mask]
+           [e2.xyz opaque mask], e1 = v1 - v0 and e2 = v2 - v0 in f32, a
+           mask 0 where the leaf rows have no such column."""
+
+    nodes: torch.Tensor
+    leaves: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
 class WideKernelBVH:
     """Host TriBVH plus the packed device tables."""
 
@@ -74,6 +106,8 @@ class WideKernelBVH:
     tri_pos: torch.Tensor    # (T, 3, 3) f32, for the u/v recompute
     arity: int = ARITY
     stack_bound: int = 1     # exact worst-case stack depth of this topology
+    depth_bound: int = 1     # hit-mask entries a K1/K2 walk holds at most
+    card: Optional[CardTables] = None  # K1/K2's copy of the tables
 
     @property
     def group_size(self) -> int:
@@ -161,6 +195,21 @@ def _stack_bound(child_node: np.ndarray, wide_of_binary: np.ndarray,
                 best = s[cw]
         s[i] = k[i] + best
     return int(s[0]) + 1 if w else 1
+
+
+def _depth_bound(child_node: np.ndarray, wide_of_binary: np.ndarray, n_int: int) -> int:
+    """Most entries a hit-mask stack holds in a walk over this wide
+    topology: one per internal wide node on the path from the root, so
+    the number of levels of internal wide nodes (the deepest one's depth
+    plus one). A breadth-first sweep from the root, so it holds for any
+    numbering of the wide nodes (the greedy collapse's and the
+    _collapse_depth3 fallback's) and for every octant's slot order."""
+    levels, frontier = 0, np.zeros(1 if child_node.shape[0] else 0, np.int64)
+    while frontier.size:
+        levels += 1
+        kids = child_node[frontier].reshape(-1)
+        frontier = wide_of_binary[kids[(kids >= 0) & (kids < n_int)]]
+    return max(levels, 1)
 
 
 def collapse_to_wide(tribvh: TriBVH, arity: int = ARITY) -> tuple:
@@ -282,27 +331,75 @@ def pack_scene_for_wide_kernel(tribvh: TriBVH, tri_pos: np.ndarray,
     return rows, np.concatenate(parts, axis=1)
 
 
+def _exact_ints(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The int32 values of f32-exact non-negative integers below 2^24;
+    raises on any other value."""
+    if bool(((x < 0) | (x >= 1 << 24)).any()):
+        raise ValueError(f"{name}: values outside [0, 2^24)")
+    xi = x.to(torch.int32)
+    if not torch.equal(xi.to(x.dtype), x):
+        raise ValueError(f"{name}: values that are not integers")
+    return xi
+
+
+def card_tables(node_rows: torch.Tensor, tri_rows: torch.Tensor, group: int,
+                arity: int = ARITY) -> CardTables:
+    """K1/K2's copy of tpurt's tables (see CardTables), built on their
+    device. Every float is copied, or is one f32 subtraction (the edges);
+    links, kinds, masks and ids are converted to int32 once, here. Raises
+    unless the links, kinds, masks and ids are exact integers below 2^24,
+    the kinds are 0, 1 or 2, and every row's empty slots come last (K1/K2
+    stop at the first group of slots that ends in one)."""
+    dev = node_rows.device
+    w = node_rows.shape[1]
+    box = node_rows[..., :6 * arity].reshape(8, w, arity, 6).contiguous().view(torch.int32)
+    link = _exact_ints(node_rows[..., 6 * arity:7 * arity], "link")
+    kind = _exact_ints(node_rows[..., 7 * arity:8 * arity], "kind")
+    if bool((kind > 2).any()):
+        raise ValueError("kind: values other than 0, 1 and 2")
+    if bool(((kind[..., 1:] > 0) & (kind[..., :-1] == 0)).any()):
+        raise ValueError("a node row has an empty slot before a used one")
+    nodes = torch.cat([box[..., 0:3], link[..., None], box[..., 3:6], kind[..., None]], dim=-1)
+
+    g = group
+    n_leaf, width = tri_rows.shape
+    v = tri_rows[:, :9 * g].reshape(n_leaf, g, 3, 3)
+    v0 = v[:, :, 0]
+    bits = (lambda x: x.contiguous().view(torch.int32))
+    none = torch.zeros((n_leaf, g, 1), dtype=torch.int32, device=dev)
+    alpha = (_exact_ints(tri_rows[:, 9 * g:10 * g], "alpha mask")[..., None]
+             if width >= 11 * g else none)
+    opaque = (_exact_ints(tri_rows[:, 10 * g:11 * g], "opaque mask")[..., None]
+              if width == 12 * g else none)
+    ids = _exact_ints(tri_rows[:, width - g:], "triangle id")[..., None]
+    leaves = torch.cat([bits(v0), ids, bits(v[:, :, 1] - v0), alpha,
+                        bits(v[:, :, 2] - v0), opaque], dim=-1)
+    return CardTables(nodes=nodes.contiguous(), leaves=leaves.contiguous())
+
+
 def make_wide_kernel_bvh(tribvh: TriBVH, tri_pos, tri_alpha_mask=None,
                          tri_alpha_opaque=None, arity: int = ARITY,
                          device="cuda", collapse=None) -> WideKernelBVH:
-    """Collapse (unless `collapse` is given), pack, and move the tables to
-    `device`."""
+    """Collapse (unless `collapse` is given), pack, move the tables to
+    `device` and build K1/K2's card tables there."""
     if collapse is None:
         collapse = collapse_to_wide(tribvh, arity)
     arity = collapse[0].shape[1]
-    bound = _stack_bound(collapse[0], collapse[1], tribvh.bvh.num_internal)
+    n_int = tribvh.bvh.num_internal
     as_np = (lambda x: None if x is None else
              (x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)))
     tri_np = as_np(tri_pos)
     node_rows, tri_rows = pack_scene_for_wide_kernel(
         tribvh, tri_np, as_np(tri_alpha_mask), as_np(tri_alpha_opaque),
         collapse=collapse, arity=arity)
+    node_rows = torch.from_numpy(node_rows).to(device)
+    tri_rows = torch.from_numpy(tri_rows).to(device)
     return WideKernelBVH(
-        tribvh=tribvh,
-        node_rows=torch.from_numpy(node_rows).to(device),
-        tri_rows=torch.from_numpy(tri_rows).to(device),
+        tribvh=tribvh, node_rows=node_rows, tri_rows=tri_rows,
         tri_pos=torch.from_numpy(np.ascontiguousarray(tri_np)).to(device),
-        arity=arity, stack_bound=bound)
+        arity=arity, stack_bound=_stack_bound(collapse[0], collapse[1], n_int),
+        depth_bound=_depth_bound(collapse[0], collapse[1], n_int),
+        card=card_tables(node_rows, tri_rows, tribvh.group_size, arity))
 
 
 def wide_supported(tribvh: TriBVH) -> bool:
@@ -723,7 +820,7 @@ def stepcost_plain(node_rows, tri_rows, o, d, t_min, t_limit, *, group: int, ari
 # ---- the CUDA kernel: build, bind, launch ----------------------------------
 
 _LIB = "wide_traverse"
-_ARGTYPES = {name: cudalib.argtypes("pipipppppppiiiiiiipp")
+_ARGTYPES = {name: cudalib.argtypes("piipipppppppiiiiipp")
              for name in ("tpurt_wide_closest", "tpurt_wide_occlusion")}
 
 
@@ -748,6 +845,31 @@ def _check_launch(kbvh: WideKernelBVH, o, d, t_min, t_limit):
                          f"{MAX_STACK}-entry stack")
 
 
+def _check_card(kbvh: WideKernelBVH, dev) -> CardTables:
+    """Raise unless K1/K2's card tables are there, on the rays' device,
+    int32, contiguous, 16-byte aligned and of the tables' shape, and the
+    depth bound fits the kernel's shared-memory stack."""
+    card = kbvh.card
+    if card is None:
+        raise ValueError("the BVH has no card tables: build it with make_wide_kernel_bvh, "
+                         "or give it card=card_tables(...)")
+    w = kbvh.node_rows.shape[1]
+    n_leaf, g = kbvh.tri_rows.shape[0], kbvh.group_size
+    for name, x, shape in (("card nodes", card.nodes, (8, w, kbvh.arity, 8)),
+                           ("card leaves", card.leaves, (n_leaf, g, 12))):
+        if x.device != dev:
+            raise ValueError(f"{name} are on {x.device}, rays are on {dev}")
+        cudalib.check(x, name, shape, torch.int32)
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} are not 16-byte aligned")
+    if not 1 <= kbvh.depth_bound <= MAX_DEPTH:
+        raise ValueError(f"depth bound {kbvh.depth_bound} outside the kernel's "
+                         f"1..{MAX_DEPTH} stack entries")
+    if kbvh.arity > 16:
+        raise ValueError(f"arity {kbvh.arity} does not fit a 16-bit hit mask")
+    return card
+
+
 def _outputs(n, dev, flag_dtype=torch.float32):
     return (torch.empty(n, dtype=torch.float32, device=dev),
             torch.empty(n, dtype=torch.int32, device=dev),
@@ -756,13 +878,16 @@ def _outputs(n, dev, flag_dtype=torch.float32):
 
 def traverse_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, occlusion: bool,
                   all_definite: bool, cell_masks: bool):
-    """Launch K1 (closest) or K2 (occlusion) on the current stream.
-    Returns (t, prim, flag) as traverse_plain does. Does not wait for the
-    card: a stack overflow surfaces at the next
-    cudalib.check_kernel_errors."""
+    """Launch K1 (closest) or K2 (occlusion) over the card tables on the
+    current stream. Returns (t, prim, flag) as traverse_plain does, bit
+    for bit. Does not wait for the card: a walk past the depth bound
+    surfaces at the next cudalib.check_kernel_errors."""
     dev = o.device
     n = o.shape[0]
     _check_launch(kbvh, o, d, t_min, t_limit)
+    card = _check_card(kbvh, dev)
+    if K12_STACK_TOP not in ("registers", "shared"):
+        raise ValueError(f"K12_STACK_TOP must be 'registers' or 'shared', not {K12_STACK_TOP!r}")
     t, prim, flag = _outputs(n, dev)
     if n == 0:
         return t, prim, flag
@@ -771,13 +896,12 @@ def traverse_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, occlusion: bool,
     fn = lib.tpurt_wide_occlusion if occlusion else lib.tpurt_wide_closest
     apply_masks = kbvh.use_masks and (occlusion or cell_masks)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(kbvh.node_rows.data_ptr(), kbvh.node_rows.shape[1],
-            kbvh.tri_rows.data_ptr(), kbvh.tri_rows.shape[1],
+    rc = fn(card.nodes.data_ptr(), kbvh.node_rows.shape[1], kbvh.arity,
+            card.leaves.data_ptr(), kbvh.group_size,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
             t.data_ptr(), prim.data_ptr(), flag.data_ptr(), n,
-            kbvh.group_size, kbvh.arity, int(kbvh.use_masks),
-            int(kbvh.use_opaque), int(apply_masks), int(all_definite),
-            err.data_ptr(), stream)
+            int(apply_masks), int(all_definite), kbvh.depth_bound,
+            int(K12_STACK_TOP == "shared"), err.data_ptr(), stream)
     cudalib.launch_check(rc, "wide traversal")
     LAUNCHES["occlusion" if occlusion else "closest"] += 1
     return t, prim, flag
