@@ -17,13 +17,14 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            cell masks) and K2 (occlusion: 65,536 shadow rays to the three
            lights) against their plain PyTorch versions on the same inputs:
            0 rays with different t bits, prim or flag (the same walk
-           order); CUDA-event timings of both. Then K3 (rope closest hit) and K4 (rope occlusion) on the same
-           three batches, over the rope tables of the same G=8 TriBVH with
-           the mask column, against their plain versions by the same rule
-           (u, v bit-equal too), and across: K3 against K1 (same cell
-           rejection) and K4 against K2 (tables without masks, once with
-           every hit definite and once with none), equal t, prim only on
-           ties, blocked equal
+           order); CUDA-event timings of both. Then K3 (rope closest hit)
+           and K4 (rope occlusion) on the same three batches, over the rope
+           tables of the same G=8 TriBVH with the mask column, against their
+           plain versions (t bit-equal wherever prim agrees, prim different
+           only on exact-t ties, blocked equal, u and v bit-equal), and
+           across: K3 against K1 (same cell rejection) and K4 against K2
+           (tables without masks, once with every hit definite and once
+           with none), equal t, prim only on ties, blocked equal
   render   Renderer.render at 1920x1080: 1 warm-up and 2 timed samples,
            with the kernel launch counters zeroed just before; NaN pixels
            must be 0, the mean radiance > 0; the PNG goes to smoke_out/.
@@ -111,14 +112,6 @@ REPS = 5
 BENCH_STEPS = 256
 PHASES = ("do_box", "do_extract", "do_push", "do_leaf")
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
-# float operations of one traversal step, counted from the kernel source:
-# per child box 6 sub + 6 mul + 6 min/max + 6 reductions + 1 compare; per
-# triangle ~60 (edges, cross products, det, reciprocal, u, v, t, tests)
-OPS_PER_BOX = 25
-OPS_PER_TRIANGLE = 60
 # rope vs wide render of the same frame: the two paths run the same
 # arithmetic and differ only where an exact-t tie picks another triangle
 ROPE_VS_WIDE_RMSE = 1e-5
@@ -216,10 +209,12 @@ def compare_rope(kind, k, p):
 
 
 def rope_bound(stats, n, row_width, group):
-    """bound() for the rope walk: one box test per step, G triangle tests
-    per leaf whose box is hit; rays read once (o, d, t_min, t_limit,
-    active: 33 B) and results written once (20 B), each 32 B node row
-    and each leaf row read once."""
+    """kernel_bench.traversal_bound for the rope walk: one box test per
+    step, G triangle tests per leaf whose box is hit; rays read once (o,
+    d, t_min, t_limit, active: 33 B) and results written once (20 B),
+    each 32 B node row and each leaf row read once."""
+    from tpurt_torch.kernel_bench import OPS_PER_BOX, OPS_PER_TRIANGLE, PEAK_BYTES, PEAK_F32
+
     ops = (float(stats["node_visits"].sum()) * OPS_PER_BOX
            + float(stats["leaf_visits"].sum()) * group * OPS_PER_TRIANGLE)
     nbytes = (n * (33 + 20) + stats["node_rows_read"] * 8 * 4
@@ -243,14 +238,12 @@ def compare_exact(k, p):
 
 def k12_resources(report):
     """ptxas's report of wide_traverse.cu keyed by K1/K2 instantiation
-    (wide_walk<Occlusion, Masks, TopInRegs>)."""
+    (wide_walk<Occlusion, Masks>)."""
     out = {}
     for name, res in report.items():
-        m = re.search(r"wide_walkILb(\d)ELb(\d)ELb(\d)E", name)
+        m = re.search(r"wide_walkILb(\d)ELb(\d)E", name)
         if m:
-            key = (f"K{1 + int(m.group(1))} masks={m.group(2)} "
-                   f"top={'registers' if m.group(3) == '1' else 'shared'}")
-            out[key] = res
+            out[f"K{1 + int(m.group(1))} masks={m.group(2)}"] = res
     return out
 
 
@@ -333,19 +326,6 @@ def timed_pair(kern, plain):
     return median(k_ms), median(p_ms)
 
 
-def bound(stats, n, row_width, group):
-    """Least time for the work this batch needed: the larger of the float
-    operations (the box and triangle tests the plain traversal counted)
-    over the f32 peak and the bytes over the memory rate (rays read once,
-    results written once, each node and leaf row read once)."""
-    ops = (float(stats["box_tests"].sum()) * OPS_PER_BOX
-           + float(stats["leaf_visits"].sum()) * group * OPS_PER_TRIANGLE)
-    nbytes = (n * (32 + 12) + stats["node_rows_read"] * 128 * 4
-              + stats["leaf_rows_read"] * row_width * 4)
-    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
-
-
 def main():
     timer = threading.Timer(DEADLINE_S, watchdog)
     timer.daemon = True
@@ -378,6 +358,8 @@ def main():
     from tpurt_torch.renderer import Renderer
     from tpurt_torch.scene.gltf import load_gltf
     from tpurt_torch.scene.procedural import write_box_scene, write_sponza_like_scene
+    from tpurt_torch.kernel_bench import PEAK_BYTES, PEAK_F32
+    from tpurt_torch.kernel_bench import traversal_bound as bound
 
     dev = torch.device("cuda", 0)
 

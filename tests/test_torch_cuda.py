@@ -59,23 +59,13 @@ def _masked_bvh(dev, n_tris=500, seed=3):
                                      tri_alpha_opaque=opaque, device=dev)
 
 
-@pytest.fixture
-def stack_top():
-    """Restores K1/K2's stack-top setting after a test that changes it."""
-    saved = wide.K12_STACK_TOP
-    yield
-    wide.K12_STACK_TOP = saved
-
-
-@pytest.mark.parametrize("top", ["registers", "shared"])
 @pytest.mark.parametrize("mode,cell_masks", [("closest", False), ("closest", True),
                                              ("occlusion", False)])
 @pytest.mark.parametrize("n", [1, 1000, 70000])
-def test_kernel_matches_plain(dev, stack_top, top, mode, cell_masks, n):
-    """K1/K2 against traverse_plain, with the stack top in registers and in
-    shared memory: t (bits), prim and the flag equal on every ray (the
-    hit-mask walk visits in the plain version's order); inactive rays
-    miss."""
+def test_kernel_matches_plain(dev, mode, cell_masks, n):
+    """K1/K2 against traverse_plain: t (bits), prim and the flag equal on
+    every ray (the hit-mask walk visits in the plain version's order);
+    inactive rays miss."""
     kb = _masked_bvh(dev)
     o, d = _rays(n, seed=n)
     o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
@@ -83,7 +73,6 @@ def test_kernel_matches_plain(dev, stack_top, top, mode, cell_masks, n):
     lim = np.where(np.arange(n) % 5 == 0, -3e38, 1e9).astype(np.float32)  # some inactive
     t_limit = torch.from_numpy(lim).to(dev)
     kw = dict(occlusion=mode == "occlusion", all_definite=False, cell_masks=cell_masks)
-    wide.K12_STACK_TOP = top
     before = dict(wide.LAUNCHES)
     tk, pk, fk = wide.traverse_cuda(kb, o, d, t_min, t_limit, **kw)
     cudalib.check_kernel_errors(dev)
@@ -147,8 +136,7 @@ def test_wrapper_rejects_missing_or_misaligned_card_tables(dev):
         wide.traverse_cuda(dataclasses.replace(kb, card=on_cpu), o, o, z, z, **kw)
 
 
-@pytest.mark.parametrize("top", ["registers", "shared"])
-def test_tampered_depth_bound_sets_the_stack_bit(dev, stack_top, top):
+def test_tampered_depth_bound_sets_the_stack_bit(dev):
     """A depth bound below the walk's deepest stack makes the walk end with
     the wide-stack bit in the card's error word, which the per-sample check
     reports and clears."""
@@ -159,7 +147,6 @@ def test_tampered_depth_bound_sets_the_stack_bit(dev, stack_top, top):
     o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
     t_min = torch.zeros(n, device=dev)
     t_limit = torch.full((n,), 1e9, device=dev)
-    wide.K12_STACK_TOP = top
     cudalib.check_kernel_errors(dev)
     wide.traverse_cuda(kb, o, d, t_min, t_limit, occlusion=False, all_definite=False,
                        cell_masks=False)

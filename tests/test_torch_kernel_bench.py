@@ -80,3 +80,24 @@ def test_json_path_is_optional(mini_scene, tmp_path, monkeypatch):
     kernel_bench.main(["--device", "cpu", "--scene", mini_scene, "--rows", "2", "--row0",
                        "540", "--reps", "1"])
     assert os.listdir(tmp_path) == []
+
+
+def test_each_batch_carries_its_bound(mini_scene):
+    """Beside each batch's time stands the bound of the tests the plain
+    version counts on it: the larger of operations over the f32 peak and
+    bytes over the memory rate, by the formula of traversal_bound."""
+    res = kernel_bench.main(["--device", "cpu", "--scene", mini_scene, "--rows", "2",
+                             "--row0", "540", "--reps", "1", "--nosort"])
+    for name in ("coherent_closest", "incoherent_closest", "incoherent_nosort_closest",
+                 "occlusion"):
+        assert res[f"{name}_bound_ms"] > 0.0
+        assert res[f"{name}_bound_by"] in ("operations", "bytes")
+    stats = {"box_tests": torch.tensor([600, 400]), "leaf_visits": torch.tensor([3, 7]),
+             "node_rows_read": 5, "leaf_rows_read": 4}
+    ms, by, ops, nbytes = kernel_bench.traversal_bound(stats, 2, 96, 8)
+    assert ops == 1000 * 25 + 10 * 8 * 60
+    assert nbytes == 2 * 44 + 5 * 512 + 4 * 96 * 4
+    assert by == "bytes" and ms == nbytes / kernel_bench.PEAK_BYTES * 1e3
+    stats["box_tests"] = torch.tensor([10 ** 9])
+    ms, by, ops, _ = kernel_bench.traversal_bound(stats, 2, 96, 8)
+    assert by == "operations" and ms == ops / kernel_bench.PEAK_F32 * 1e3

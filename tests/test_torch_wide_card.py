@@ -27,7 +27,6 @@ import torch
 
 from tpurt.bvh import build_triangle_bvh as j_build_bvh
 from tpurt.kernels import pallas_wide as jw
-from tpurt_torch import kernel_bench
 from tpurt_torch.bvh.lbvh import build_triangle_bvh
 from tpurt_torch.convert import wide_bvh_from_numpy
 from tpurt_torch.kernels import wide
@@ -379,26 +378,3 @@ def test_depth_bound_counts_levels():
     lone = np.full((1, 16), -1)
     lone[0, 0] = 0
     assert wide._depth_bound(lone, np.full(0, -1), 0) == 1
-
-
-def test_kernel_bench_k12_stack_flag(tmp_path):
-    """kernel_bench --k12-stack registers reaches the K1/K2 wrapper's
-    setting for its run only and records it."""
-    path = write_sponza_like_scene(str(tmp_path / "s.gltf"), columns=2, foliage=8)
-    seen = []
-    plain = wide.traverse_plain
-
-    def spy(*args, **kw):
-        seen.append(wide.K12_STACK_TOP)
-        return plain(*args, **kw)
-
-    wide.traverse_plain = spy
-    try:
-        res = kernel_bench.main(["--device", "cpu", "--scene", path, "--rows", "1",
-                                 "--row0", "540", "--reps", "1", "--k12-stack", "registers"])
-    finally:
-        wide.traverse_plain = plain
-    assert res["k12_stack_top"] == "registers" and seen and set(seen) == {"registers"}
-    assert wide.K12_STACK_TOP == "shared"
-    with pytest.raises(SystemExit):
-        kernel_bench.build_parser().parse_args(["--k12-stack", "local"])

@@ -42,9 +42,8 @@
 //     one entry per internal level of the wide tree; the host computes
 //     that depth bound from the collapse and sizes the stack with it. The
 //     entries live in dynamic shared memory laid out [depth][thread], so a
-//     warp's 8-byte entries fall on distinct banks. Keeping the top entry
-//     in registers instead (TopInRegs, kernel_bench --k12-stack registers)
-//     costs registers and measured slower on the bench's incoherent rays
+//     warp's 8-byte entries fall on distinct banks; keeping the top entry
+//     in registers instead took more registers and measured no faster
 //     (PERF.md). An entry past the bound ORs cudalib's wide-stack bit into
 //     the card's error word and ends the ray.
 //  3. The if-if loop that ran node and leaf steps of one warp one after
@@ -59,7 +58,7 @@
 //
 // Bound. A box test is ~25 f32 operations and a triangle test ~60, so at
 // the bench's shapes the work is bound by operations against the
-// 67 TFLOP/s f32 rate; the card tables (about 20 MB at the bench's
+// 67 TFLOP/s f32 rate; the card tables (about 30 MB at the bench's
 // 215,296 triangles) fit the 50 MB L2. What the kernel pays for is an
 // incoherent, divergent walk, not the arithmetic (PERF.md records its
 // time beside the bound computed from the plain version's test counts).
@@ -80,73 +79,44 @@ constexpr int kWordsPerTri = 3;         // float4 words per triangle
 constexpr int kSlotGroup = 4;           // child slots loaded together
 constexpr int kDefaultSharedBytes = 48 * 1024;
 
-// The hit-mask stack of one thread: entries (row, hit | leaf << 16), at
-// most `cap` of them. With TopInRegs the top entry is kept in registers
-// and only the entries below it in shared memory.
-template <bool TopInRegs>
+// The hit-mask stack of one thread: entries (row, hit | leaf << 16), each
+// with a bit left, at most `cap` of them.
 struct MaskStack {
   int2* base;  // this thread's column of the [depth][thread] array
   int cap;
   int sp;
-  int top_row;
-  unsigned top_bits;
 
   __device__ __forceinline__ MaskStack(int2* shared, int cap_)
-      : base(shared + threadIdx.x), cap(cap_), sp(0), top_row(0), top_bits(0u) {}
+      : base(shared + threadIdx.x), cap(cap_), sp(0) {}
 
   // false when the entry does not fit under the bound
   __device__ __forceinline__ bool push(int row, unsigned bits) {
-    if (TopInRegs) {
-      if (top_bits != 0u) {
-        if (sp + 1 >= cap) return false;
-        base[sp * kThreads] = make_int2(top_row, (int)top_bits);
-        ++sp;
-      }
-      top_row = row;
-      top_bits = bits;
-    } else {
-      if (sp >= cap) return false;
-      base[sp * kThreads] = make_int2(row, (int)bits);
-      ++sp;
-    }
+    if (sp >= cap) return false;
+    base[sp * kThreads] = make_int2(row, (int)bits);
+    ++sp;
     return true;
   }
 
   // the nearest hit child left: its node row, slot and whether it is a
   // leaf; false when the stack is empty
   __device__ __forceinline__ bool pop(int& row, int& slot, bool& leaf) {
-    unsigned bits;
-    if (TopInRegs) {
-      if (top_bits == 0u) {
-        if (sp == 0) return false;
-        --sp;
-        const int2 e = base[sp * kThreads];
-        top_row = e.x;
-        top_bits = (unsigned)e.y;
-      }
-      bits = top_bits;
-      row = top_row;
-    } else {
-      if (sp == 0) return false;
-      const int2 e = base[(sp - 1) * kThreads];
-      bits = (unsigned)e.y;
-      row = e.x;
-    }
+    if (sp == 0) return false;
+    int2& top = base[(sp - 1) * kThreads];
+    const unsigned bits = (unsigned)top.y;
+    row = top.x;
     slot = __ffs(bits) - 1;
     leaf = (bits >> (16 + slot)) & 1u;
     const unsigned rest = bits & ~(0x10001u << slot);
-    if (TopInRegs) {
-      top_bits = rest;
-    } else if (rest == 0u) {
+    if (rest == 0u) {
       --sp;
     } else {
-      base[(sp - 1) * kThreads].y = (int)rest;
+      top.y = (int)rest;
     }
     return true;
   }
 };
 
-template <bool Occlusion, bool Masks, bool TopInRegs>
+template <bool Occlusion, bool Masks>
 __global__ void __launch_bounds__(kThreads)
 wide_walk(const float4* __restrict__ card_nodes, int n_wide, int arity,
           const float4* __restrict__ card_leaves, int group,
@@ -175,7 +145,7 @@ wide_walk(const float4* __restrict__ card_nodes, int n_wide, int arity,
   int prim = -1;
   float flag = 0.0f;  // blocked (K2) or pending (K1 with cell masks)
 
-  MaskStack<TopInRegs> stack(stack_mem, depth_bound);
+  MaskStack stack(stack_mem, depth_bound);
   bool overflow = false;
 
   // next entry: a node row (>= 0), a leaf as -(leaf + 1), or kEnd
@@ -291,15 +261,14 @@ wide_walk(const float4* __restrict__ card_nodes, int n_wide, int arity,
   flag_out[i] = flag;
 }
 
-template <bool Occlusion, bool Masks, bool TopInRegs>
+template <bool Occlusion, bool Masks>
 int launch_walk(const void* card_nodes, int n_wide, int arity, const void* card_leaves,
                 int group, const void* o, const void* d, const void* t_min,
                 const void* t_limit, void* t_out, void* prim_out, void* flag_out, int n,
                 int all_definite, int depth_bound, void* err, void* stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
-  const int in_shared = TopInRegs ? depth_bound - 1 : depth_bound;
-  const size_t smem = (size_t)kThreads * (in_shared > 0 ? in_shared : 0) * sizeof(int2);
-  auto kernel = wide_walk<Occlusion, Masks, TopInRegs>;
+  const size_t smem = (size_t)kThreads * depth_bound * sizeof(int2);
+  auto kernel = wide_walk<Occlusion, Masks>;
   if (smem > (size_t)kDefaultSharedBytes) {
     cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -317,14 +286,9 @@ template <bool Occlusion>
 int launch(const void* card_nodes, int n_wide, int arity, const void* card_leaves,
            int group, const void* o, const void* d, const void* t_min, const void* t_limit,
            void* t_out, void* prim_out, void* flag_out, int n, int apply_masks,
-           int all_definite, int depth_bound, int top_in_shared, void* err,
-           void* stream) {
+           int all_definite, int depth_bound, void* err, void* stream) {
   if (n <= 0) return 0;
-  auto* fn = apply_masks
-                 ? (top_in_shared ? &launch_walk<Occlusion, true, false>
-                                  : &launch_walk<Occlusion, true, true>)
-                 : (top_in_shared ? &launch_walk<Occlusion, false, false>
-                                  : &launch_walk<Occlusion, false, true>);
+  auto* fn = apply_masks ? &launch_walk<Occlusion, true> : &launch_walk<Occlusion, false>;
   return fn(card_nodes, n_wide, arity, card_leaves, group, o, d, t_min, t_limit, t_out,
             prim_out, flag_out, n, all_definite, depth_bound, err, stream);
 }
@@ -337,22 +301,21 @@ int tpurt_wide_closest(const void* card_nodes, int n_wide, int arity,
                        const void* card_leaves, int group, const void* o, const void* d,
                        const void* t_min, const void* t_limit, void* t_out,
                        void* prim_out, void* flag_out, int n, int apply_masks,
-                       int all_definite, int depth_bound, int top_in_shared, void* err,
-                       void* stream) {
+                       int all_definite, int depth_bound, void* err, void* stream) {
   return launch<false>(card_nodes, n_wide, arity, card_leaves, group, o, d, t_min,
                        t_limit, t_out, prim_out, flag_out, n, apply_masks, all_definite,
-                       depth_bound, top_in_shared, err, stream);
+                       depth_bound, err, stream);
 }
 
 int tpurt_wide_occlusion(const void* card_nodes, int n_wide, int arity,
                          const void* card_leaves, int group, const void* o,
                          const void* d, const void* t_min, const void* t_limit,
                          void* t_out, void* prim_out, void* flag_out, int n,
-                         int apply_masks, int all_definite, int depth_bound,
-                         int top_in_shared, void* err, void* stream) {
+                         int apply_masks, int all_definite, int depth_bound, void* err,
+                         void* stream) {
   return launch<true>(card_nodes, n_wide, arity, card_leaves, group, o, d, t_min,
                       t_limit, t_out, prim_out, flag_out, n, apply_masks, all_definite,
-                      depth_bound, top_in_shared, err, stream);
+                      depth_bound, err, stream);
 }
 
 }  // extern "C"

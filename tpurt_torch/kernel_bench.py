@@ -3,8 +3,7 @@ benchmarks/kernel_bench.py).
 
     python -m tpurt_torch.kernel_bench [--reps 5] [--json out.json]
         [--rows 256] [--row0 400] [--group G] [--nosort] [--octet N]
-        [--k12-stack registers|shared] [--stepcost K] [--device cuda]
-        [--scene scene.gltf]
+        [--stepcost K] [--device cuda] [--scene scene.gltf]
 
 Times the wide kernels on the three ray batches that set frame time, on
 the bench's Sponza-like interior (215,296 triangles) seen by the bench
@@ -19,11 +18,12 @@ packed in 1024-pixel tiles, as benchmarks/kernel_bench.py builds them:
   distance, sorted the same way.
 
 Each time is the median of `--reps` CUDA-event timings after one
-warm-up, of the kernel wrapper alone (u/v not recomputed). `--octet N`
+warm-up, of the kernel wrapper alone (u/v not recomputed). Beside each
+batch's time stands its bound (`traversal_bound`): the least time the
+card could take for the box and triangle tests that the plain version
+counts on the same rays. `--octet N`
 times the multi-walk kernel K5 with N walks per 1024 rays in place of
-K1/K2. `--k12-stack registers` times K1/K2 with the top entry of their
-hit-mask stack in registers, in place of shared memory with the rest.
-`--stepcost K` runs the step-cost instrument K6 on the sorted
+K1/K2. `--stepcost K` runs the step-cost instrument K6 on the sorted
 bounce batch: exactly K steps per ray, once per configuration (full,
 -leaf, -push, -extract, -box, each dropping one phase more), and prints
 each one's ms and ns per ray-step and the per-phase differences.
@@ -65,6 +65,15 @@ LIGHTS = (SphereLight((-8.0, -5.0, -2.0), 0.1, (0.8, 0.6, 0.6), 500.0),
           SphereLight((0.0, -7.5, 0.0), 0.5, (0.9, 0.9, 0.7), 1000.0))
 WIDTH, HEIGHT = 1920, 1080
 
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# float operations of one traversal step, counted from the kernel source:
+# per child box 6 sub + 6 mul + 6 min/max + 6 reductions + 1 compare; per
+# triangle ~60 (edges, cross products, det, reciprocal, u, v, t, tests)
+OPS_PER_BOX = 25
+OPS_PER_TRIANGLE = 60
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m tpurt_torch.kernel_bench",
@@ -81,8 +90,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--octet", type=int, default=0, choices=(0,) + wide.OCTET_WALKS,
                     help="time the multi-walk kernel K5 with N walks per "
                          "1024 rays in place of K1/K2")
-    ap.add_argument("--k12-stack", default="shared", choices=("shared", "registers"),
-                    help="where K1/K2 keep the top entry of their hit-mask stack")
     ap.add_argument("--stepcost", type=int, default=0,
                     help="run the step-cost instrument K6 at this many "
                          "steps per ray (e.g. 256)")
@@ -167,6 +174,21 @@ def bench_batches(r: Renderer, kbvh: wide.WideKernelBVH, rows: int = 256, row0: 
             "shadow": c(oos, dls, tl)}
 
 
+def traversal_bound(stats: dict, n: int, row_width: int, group: int) -> tuple:
+    """Least time for the work a batch of `n` rays needed, from the stats
+    of wide.traverse_plain on it: the larger of the float operations (the
+    box and triangle tests it counted) over the f32 peak and the bytes over
+    the memory rate (rays read once, results written once, each node and
+    leaf row read once). Returns (ms, "operations" or "bytes", operations,
+    bytes)."""
+    ops = (float(stats["box_tests"].sum()) * OPS_PER_BOX
+           + float(stats["leaf_visits"].sum()) * group * OPS_PER_TRIANGLE)
+    nbytes = (n * (32 + 12) + stats["node_rows_read"] * 128 * 4
+              + stats["leaf_rows_read"] * row_width * 4)
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
 def median_ms(fn, reps: int, device: torch.device) -> float:
     """Median time of `fn` over `reps` runs after one warm-up: CUDA events
     on the card, the host clock on the CPU."""
@@ -215,14 +237,6 @@ def stepcost_table(kbvh: wide.WideKernelBVH, o, d, steps: int, reps: int,
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    top, wide.K12_STACK_TOP = wide.K12_STACK_TOP, args.k12_stack
-    try:
-        return _run(args)
-    finally:
-        wide.K12_STACK_TOP = top
-
-
-def _run(args) -> dict:
     r = load_renderer(args.scene, args.device)
     dev = r.device
     kbvh = r.bvh
@@ -243,26 +257,33 @@ def _run(args) -> dict:
     active = torch.ones(n, dtype=torch.bool, device=dev)
     t_max = r.config.t_max
 
-    def closest(o, d):
-        return wide.traverse_packets(kbvh, o, d, t_min, t_max, active, octet=args.octet,
-                                     need_uv=False)
-
-    def occlusion():
-        o, d, tl = b["shadow"]
-        return wide.occlusion_packets(kbvh, o, d, t_min, tl, active, r.has_alpha,
-                                      octet=args.octet, need_uv=False)
-
+    far = torch.full((n,), float(np.float32(t_max)), dtype=torch.float32, device=dev)
     results = {"device": card_name(dev), "kernels": kernels, "rays": n, "triangles": tris,
-               "group": kbvh.group_size, "k12_stack_top": args.k12_stack}
-    timed = [("coherent_closest", lambda: closest(*b["camera"])),
-             ("incoherent_closest", lambda: closest(*b["bounce"]))]
+               "group": kbvh.group_size}
+    timed = [("coherent_closest", *b["camera"], far, False),
+             ("incoherent_closest", *b["bounce"], far, False)]
     if args.nosort:
-        timed.append(("incoherent_nosort_closest", lambda: closest(*b["bounce_unsorted"])))
-    timed.append(("occlusion", occlusion))
-    for name, fn in timed:
-        ms = median_ms(fn, args.reps, dev)
+        timed.append(("incoherent_nosort_closest", *b["bounce_unsorted"], far, False))
+    timed.append(("occlusion", *b["shadow"], True))
+    for name, o, d, t_limit, occlusion in timed:
+        if occlusion:
+            ms = median_ms(lambda: wide.occlusion_packets(
+                kbvh, o, d, t_min, t_limit, active, r.has_alpha, octet=args.octet,
+                need_uv=False), args.reps, dev)
+        else:
+            ms = median_ms(lambda: wide.traverse_packets(
+                kbvh, o, d, t_min, t_max, active, octet=args.octet, need_uv=False),
+                args.reps, dev)
+        stats = {}
+        wide.traverse_plain(kbvh.node_rows, kbvh.tri_rows, o, d, t_min, t_limit,
+                            group=kbvh.group_size, arity=kbvh.arity, occlusion=occlusion,
+                            all_definite=not r.has_alpha, cell_masks=False, stats=stats)
+        bound_ms, bound_by, _, _ = traversal_bound(stats, n, kbvh.tri_rows.shape[1],
+                                                   kbvh.group_size)
         results[f"{name}_ms"] = ms
         results[f"{name}_mrays"] = n / ms / 1e3
+        results[f"{name}_bound_ms"] = bound_ms
+        results[f"{name}_bound_by"] = bound_by
     if args.stepcost:
         table = stepcost_table(kbvh, *b["bounce"], args.stepcost, args.reps, t_max)
         for name, _ in wide.STEPCOST_CONFIGS:

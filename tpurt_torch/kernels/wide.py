@@ -61,14 +61,9 @@ _LANE = 128
 # per-ray stack capacity (ints) of the per-child-push walks: the plain
 # versions, K5 and K6
 MAX_STACK = 256
-# K1/K2 keep the hit-mask entries below the top (8 bytes each) in the
-# dynamic shared memory of a 128-thread block, at most 227 KB
-_K12_THREADS = 128
-MAX_DEPTH = 232448 // (_K12_THREADS * 8) + 1
-# where K1/K2 keep their stack's top entry: "shared", with the rest (the
-# default, measured faster: PERF.md), or "registers"; kernel_bench
-# --k12-stack times either
-K12_STACK_TOP = "shared"
+# K1/K2 keep their hit-mask entries (8 bytes each) in the dynamic shared
+# memory of a 128-thread block, at most 227 KB
+MAX_DEPTH = 232448 // (128 * 8)
 _BIG = 3.0e38
 
 # rays per packet; a multi-walk kernel (K5) cuts it into N walks
@@ -820,7 +815,7 @@ def stepcost_plain(node_rows, tri_rows, o, d, t_min, t_limit, *, group: int, ari
 # ---- the CUDA kernel: build, bind, launch ----------------------------------
 
 _LIB = "wide_traverse"
-_ARGTYPES = {name: cudalib.argtypes("piipipppppppiiiiipp")
+_ARGTYPES = {name: cudalib.argtypes("piipipppppppiiiipp")
              for name in ("tpurt_wide_closest", "tpurt_wide_occlusion")}
 
 
@@ -865,8 +860,6 @@ def _check_card(kbvh: WideKernelBVH, dev) -> CardTables:
     if not 1 <= kbvh.depth_bound <= MAX_DEPTH:
         raise ValueError(f"depth bound {kbvh.depth_bound} outside the kernel's "
                          f"1..{MAX_DEPTH} stack entries")
-    if kbvh.arity > 16:
-        raise ValueError(f"arity {kbvh.arity} does not fit a 16-bit hit mask")
     return card
 
 
@@ -886,8 +879,6 @@ def traverse_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, occlusion: bool,
     n = o.shape[0]
     _check_launch(kbvh, o, d, t_min, t_limit)
     card = _check_card(kbvh, dev)
-    if K12_STACK_TOP not in ("registers", "shared"):
-        raise ValueError(f"K12_STACK_TOP must be 'registers' or 'shared', not {K12_STACK_TOP!r}")
     t, prim, flag = _outputs(n, dev)
     if n == 0:
         return t, prim, flag
@@ -900,8 +891,7 @@ def traverse_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, occlusion: bool,
             card.leaves.data_ptr(), kbvh.group_size,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
             t.data_ptr(), prim.data_ptr(), flag.data_ptr(), n,
-            int(apply_masks), int(all_definite), kbvh.depth_bound,
-            int(K12_STACK_TOP == "shared"), err.data_ptr(), stream)
+            int(apply_masks), int(all_definite), kbvh.depth_bound, err.data_ptr(), stream)
     cudalib.launch_check(rc, "wide traversal")
     LAUNCHES["occlusion" if occlusion else "closest"] += 1
     return t, prim, flag
