@@ -9,7 +9,7 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
   build    nvcc the four CUDA sources (wide_traverse.cu, rope_traverse.cu,
            wide_octet.cu, wide_stepcost.cu) and g++ the native host core,
            all at once; ptxas's registers, stack frame and spills for each
-           instantiation of K1/K2
+           instantiation of K1/K2 and of K3/K4
   scene    write the bench's Sponza-like scene (~215k triangles), load it,
            build the renderer at 1920x1080 on the card (its wide tables and
            K1/K2's card tables), time each host step
@@ -19,12 +19,12 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            0 rays with different t bits, prim or flag (the same walk
            order); CUDA-event timings of both. Then K3 (rope closest hit)
            and K4 (rope occlusion) on the same three batches, over the rope
-           tables of the same G=8 TriBVH with the mask column, against their
-           plain versions (t bit-equal wherever prim agrees, prim different
-           only on exact-t ties, blocked equal, u and v bit-equal), and
-           across: K3 against K1 (same cell rejection) and K4 against K2
-           (tables without masks, once with every hit definite and once
-           with none), equal t, prim only on ties, blocked equal
+           card tables of the same G=8 TriBVH with the mask column, against
+           their plain versions over the rope rows (0 rays with different t
+           bits, prim, u, v or blocked: the same walk order), and across: K3
+           against K1 (same cell rejection) and K4 against K2 (tables without
+           masks, once with every hit definite and once with none), equal t,
+           prim only on ties, blocked equal
   render   Renderer.render at 1920x1080: 1 warm-up and 2 timed samples,
            with the kernel launch counters zeroed just before; NaN pixels
            must be 0, the mean radiance > 0; the PNG goes to smoke_out/.
@@ -43,12 +43,18 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
   rope     the rope path: Renderer(..., bvh=build_triangle_bvh(tri, 8)) on
            the same scene, camera and lights, 1 warm-up and 2 timed samples
            with every launch counter zeroed just before; K3 must launch, K1,
-           K2 and K4 must not. The warm-up's first camera and bounce waves
-           are held against rope.traverse_plain; the image against the
-           `render` phase's (same seed and samples) by RMSE, bound
-           ROPE_VS_WIDE_RMSE. Then K4's own path, rope.occlusion_packets on
-           the frame's 2,073,600 shadow rays (camera hits to the lights),
-           counted and held against the plain version
+           K2 and K4 must not; the image against the `render` phase's (same
+           seed and samples) by RMSE, bound ROPE_VS_WIDE_RMSE. Then
+           torch.profiler over one more rope sample (K3's launches, device ms
+           and share of the sample, the device's busy share; K3 traced as
+           often as counted). The warm-up keeps the first camera wave, shadow
+           wave (traced as closest hits), bounce wave and alpha re-trace; each
+           is held against rope.traverse_plain (0 rays with different t bits,
+           prim, u, v or blocked) and K3 is timed on it (ns per ray and the
+           bound of the plain walk's steps). Then K4's own path,
+           rope.occlusion_packets on the frame's 2,073,600 shadow rays
+           (camera hits to the lights), counted, held against the plain walk
+           the same way and timed
   octet    K5, the multi-walk kernel: against octet_plain at 8 walks on the
            three 65,536-ray batches of `kernels` and at 2 and 4 walks on the
            camera batch, t, prim and flag bit-equal (the same walk order);
@@ -79,7 +85,8 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            tests/goldens/box_64x48_8spp.npz (fail above 1e-3)
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
-the {"kernels": [...]} line (K1-K6), and last {"ok": true, "device":
+the {"kernels": [...]} line (K1-K6; K1-K3 with their whole-frame waves
+and their share of a traced sample), and last {"ok": true, "device":
 {...}}. A watchdog ends the run with exit code 1, naming the phase it was
 in, after 600 seconds. Needs torch with CUDA, numpy, nvcc and g++; no JAX, no
 Pillow, no prebuilt artefact.
@@ -195,72 +202,52 @@ def compare(kind, k, p):
             "mismatch": int(bad.sum()), "max_abs_err": err}
 
 
-def compare_rope(kind, k, p):
-    """compare() for the rope kernels' (t, prim, u, v, blocked), with u and
-    v bit-equal wherever prim agrees."""
-    import torch
-
-    out = compare(kind, (k[0], k[1], k[4]), (p[0], p[1], p[4]))
-    same = k[1] == p[1]
-    uv_bad = same & ((k[2].view(torch.int32) != p[2].view(torch.int32))
-                     | (k[3].view(torch.int32) != p[3].view(torch.int32)))
-    out["mismatch"] += int(uv_bad.sum())
-    return out
-
-
-def rope_bound(stats, n, row_width, group):
-    """kernel_bench.traversal_bound for the rope walk: one box test per
-    step, G triangle tests per leaf whose box is hit; rays read once (o,
-    d, t_min, t_limit, active: 33 B) and results written once (20 B),
-    each 32 B node row and each leaf row read once."""
-    from tpurt_torch.kernel_bench import OPS_PER_BOX, OPS_PER_TRIANGLE, PEAK_BYTES, PEAK_F32
-
-    ops = (float(stats["node_visits"].sum()) * OPS_PER_BOX
-           + float(stats["leaf_visits"].sum()) * group * OPS_PER_TRIANGLE)
-    nbytes = (n * (33 + 20) + stats["node_rows_read"] * 8 * 4
-              + stats["leaf_rows_read"] * row_width * 4)
-    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
-
-
 def compare_exact(k, p):
     """Kernel against plain version when both walk in the same order:
-    rays where t (bits), prim or the flag differ."""
+    rays where any output differs, floats compared by their bits ((t,
+    prim, flag) of K1/K2/K5/K6, (t, prim, u, v, blocked) of K3/K4)."""
     import torch
 
-    bad = ((k[0].view(torch.int32) != p[0].view(torch.int32)) | (k[1] != p[1])
-           | (k[2].view(torch.int32) != p[2].view(torch.int32)))
+    bits = (lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x)
+    bad = torch.zeros(k[0].shape, dtype=torch.bool, device=k[0].device)
+    for a, b in zip(k, p):
+        bad |= bits(a) != bits(b)
     hit = k[1] >= 0
     err = float((k[0][hit] - p[0][hit]).abs().max()) if bool(hit.any()) else 0.0
     return {"rays": int(k[0].numel()), "mismatch": int(bad.sum()), "max_abs_err": err,
-            "flag_set": int((k[2] != 0).sum()) if k[2].dtype == torch.float32 else None}
+            "flag_set": int((k[-1] != 0).sum()) if k[-1].dtype == torch.float32 else None}
 
 
-def k12_resources(report):
-    """ptxas's report of wide_traverse.cu keyed by K1/K2 instantiation
-    (wide_walk<Occlusion, Masks>)."""
+# the templates of K1/K2 and of K3/K4, each <Occlusion, Masks>
+WALKS = {"wide_walk": ("K1", "K2"), "rope_walk": ("K3", "K4")}
+
+
+def walk_resources(report, walk):
+    """ptxas's report of a traversal source keyed by instantiation of its
+    `walk` template (<Occlusion, Masks>)."""
     out = {}
     for name, res in report.items():
-        m = re.search(r"wide_walkILb(\d)ELb(\d)E", name)
+        m = re.search(walk + r"ILb(\d)ELb(\d)E", name)
         if m:
-            out[f"K{1 + int(m.group(1))} masks={m.group(2)}"] = res
+            out[f"{WALKS[walk][int(m.group(1))]} masks={m.group(2)}"] = res
     return out
 
 
-def k12_of(kernel_name):
-    """'K1' or 'K2' for a traced wide_walk kernel (demangled or not),
-    else None."""
-    m = re.search(r"wide_walk(?:<|ILb)(true|false|1|0)", kernel_name)
-    if m is None:
-        return None
-    return "K2" if m.group(1) in ("true", "1") else "K1"
+def kernel_of(kernel_name):
+    """'K1'-'K4' for a traced wide_walk or rope_walk kernel (demangled or
+    not), else None."""
+    for walk, ids in WALKS.items():
+        m = re.search(walk + r"(?:<|ILb)(true|false|1|0)", kernel_name)
+        if m is not None:
+            return ids[m.group(1) in ("true", "1")]
+    return None
 
 
-def trace_summary(prof, wall_s):
+def trace_summary(prof, wall_s, kernels):
     """From a torch.profiler run over one sample: the device's busy share
     (the union of its kernel, copy and set intervals over the wall time),
-    K1 and K2 launches, device ms and share of the sample, and the ten
-    kernels with the most device time."""
+    the launches, device ms and share of the sample of each of `kernels`
+    (ids of kernel_of), and the ten kernels with the most device time."""
     from torch.autograd import DeviceType
 
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -282,8 +269,8 @@ def trace_summary(prof, wall_s):
     total_us = sum(v[1] for v in by_name.values())
     out = {"device_events": len(events), "device_busy_share": busy_us / (wall_s * 1e6),
            "device_busy_ms": busy_us / 1e3, "device_event_ms": total_us / 1e3}
-    for k in ("K1", "K2"):
-        sel = [v for name, v in by_name.items() if k12_of(name) == k]
+    for k in kernels:
+        sel = [v for name, v in by_name.items() if kernel_of(name) == k]
         ms = sum(v[1] for v in sel) / 1e3
         out[k] = {"launches": sum(v[0] for v in sel), "device_ms": ms,
                   "share_of_sample": ms / (wall_s * 1e3)}
@@ -358,7 +345,7 @@ def main():
     from tpurt_torch.renderer import Renderer
     from tpurt_torch.scene.gltf import load_gltf
     from tpurt_torch.scene.procedural import write_box_scene, write_sponza_like_scene
-    from tpurt_torch.kernel_bench import PEAK_BYTES, PEAK_F32
+    from tpurt_torch.kernel_bench import PEAK_BYTES, PEAK_F32, rope_bound
     from tpurt_torch.kernel_bench import traversal_bound as bound
 
     dev = torch.device("cuda", 0)
@@ -387,7 +374,13 @@ def main():
         if errors:
             raise RuntimeError("; ".join(errors))
         info.update(times)
-        info["k1_k2_ptxas"] = k12_resources(cudalib.kernel_resources("wide_traverse"))
+        info["k1_k2_ptxas"] = walk_resources(cudalib.kernel_resources("wide_traverse"),
+                                             "wide_walk")
+        info["k3_k4_ptxas"] = walk_resources(cudalib.kernel_resources("rope_traverse"),
+                                             "rope_walk")
+        for key, walk in (("k1_k2_ptxas", "wide_walk"), ("k3_k4_ptxas", "rope_walk")):
+            if len(info[key]) != 4:
+                raise RuntimeError(f"ptxas reported {sorted(info[key])} for {walk}")
 
     os.makedirs(OUT_DIR, exist_ok=True)
     tmp = tempfile.TemporaryDirectory()
@@ -532,7 +525,7 @@ def main():
             out_k = kern()
             out_p = plain()
             cudalib.check_kernel_errors(dev)
-            cmp = compare_rope(mode, out_k, out_p)
+            cmp = compare_exact(out_k, out_p)
             b_ms, b_by, ops, nbytes = rope_bound(stats, N_RAYS, rk.tri_rows.shape[1],
                                                  rk.group_size)
             k_ms, p_ms = timed_pair(kern, plain)
@@ -570,7 +563,7 @@ def main():
         bad = (sum(v["mismatch"] for v in rope_results.values())
                + sum(v["mismatch"] for v in across.values()))
         if bad:
-            raise RuntimeError(f"rope kernel mismatches beyond exact-t ties: {bad}")
+            raise RuntimeError(f"K3/K4 against the plain walk (and across): {bad} rays differ")
         if rope_results["shadow"]["flag_set"] == 0:
             raise RuntimeError("no blocked ray in the K4 shadow batch")
         kernel_rows += [
@@ -689,7 +682,7 @@ def main():
         launches = launch_counts()
         if r.sample_count != done + 1:
             raise RuntimeError(f"the traced step rendered {r.sample_count - done} samples")
-        summary = trace_summary(prof, wall)
+        summary = trace_summary(prof, wall, ("K1", "K2"))
         info.update(sample_wall_s=wall, launches=launches, **summary)
         for k, mode in (("K1", "closest"), ("K2", "occlusion")):
             if summary[k]["launches"] == 0:
@@ -712,16 +705,22 @@ def main():
         if not isinstance(rr.bvh, rope.KernelBVH):
             raise RuntimeError(f"bvh=<TriBVH> did not take the rope path: {type(rr.bvh)}")
         # during the warm-up sample keep the K3 launch of the first camera
-        # wave and of the first bounce wave (the first trace with spheres)
+        # wave, the first shadow wave (traced as closest hits), the first
+        # bounce wave (the first fresh trace with spheres) and the first
+        # alpha re-trace (t_min > 0)
         import tpurt_torch.bvh.traverse as traverse_mod
 
         captured, wanted = {}, []
         scene_walk, launch = traverse_mod.intersect_scene, rope.traverse_cuda
 
         def walk(bvh, tri_pos, lights_, o, d, t_min, t_max, include_spheres=True, active=None):
-            fresh = not bool((t_min != 0).any())
-            name = "bounce_wave" if include_spheres else "camera_wave"
-            wanted.append(name if fresh and name not in captured else None)
+            if bool((t_min != 0).any()):
+                name = "alpha_retrace"
+            elif include_spheres:
+                name = "bounce_wave"
+            else:
+                name = "shadow_wave" if "camera_wave" in captured else "camera_wave"
+            wanted.append(None if name in captured else name)
             try:
                 return scene_walk(bvh, tri_pos, lights_, o, d, t_min, t_max,
                                   include_spheres=include_spheres, active=active)
@@ -761,6 +760,8 @@ def main():
                     rays_per_sample=rays / 2, mrays_per_s=round(rays / timed / 1e6, 3),
                     launches=launches, nan_pixels=nan_px, rmse_vs_wide=rmse_wide,
                     rmse_bound=ROPE_VS_WIDE_RMSE, png=os.path.relpath(png_path, ROOT),
+                    card_table_mb=round(sum(x.numel() for x in (
+                        rr.bvh.card.boxes, rr.bvh.card.links, rr.bvh.card.tris)) * 4 / 2**20, 2),
                     peak_mem_gb=round(torch.cuda.max_memory_allocated() / 2**30, 2))
         if launches["rope_closest"] <= 0 or launches["rope_occlusion"] or launches["closest"] \
                 or launches["occlusion"]:
@@ -770,14 +771,57 @@ def main():
                                f"the wide render (bound {ROPE_VS_WIDE_RMSE})")
         kernel_rows[2]["launches"] = launches["rope_closest"]
 
+        # one more rope sample under the profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        zero_launch_counts()
+        done = rr.sample_count
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rr.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        traced = launch_counts()
+        if rr.sample_count != done + 1:
+            raise RuntimeError(f"the traced step rendered {rr.sample_count - done} samples")
+        summary = trace_summary(prof, wall, ("K3",))
+        del prof
+        info.update(trace=dict(sample_wall_s=wall, launches=traced, **summary))
+        if summary["K3"]["launches"] == 0 or summary["K3"]["launches"] != traced["rope_closest"]:
+            raise RuntimeError(f"K3: {summary['K3']['launches']} kernels traced, "
+                               f"{traced['rope_closest']} launches counted")
+        kernel_rows[2]["trace_per_sample"] = summary["K3"]
+
+        # each captured wave against the plain walk, then K3 timed on it:
+        # the rope render's own shapes (whole-frame waves)
         t0 = time.perf_counter()
         rt = rr.bvh
         main_cases = {}
+
+        def wave_case(kbvh, args, kw, out_k, ids=False):
+            """out_k against the plain walk on the same inputs (prim as
+            original ids when `ids`), the kernel's median time and the
+            bound of the plain walk's steps."""
+            stats = {}
+            p_ms, out_p = cuda_ms(lambda: rope.traverse_plain(
+                kbvh.node_rows, kbvh.tri_rows, *args, n_internal=kbvh.n_internal,
+                group=kbvh.group_size, stats=stats, **kw))
+            if ids:
+                out_p = (out_p[0], rope.original_ids(kbvh, out_p[1])) + tuple(out_p[2:])
+            row = compare_exact(out_k, out_p)
+            del out_p
+            n = int(args[0].shape[0])
+            ms = timed_kernel(lambda: rope.traverse_cuda(kbvh, *args, **kw))
+            b_ms, b_by, _, _ = rope_bound(stats, n, kbvh.tri_rows.shape[1], kbvh.group_size)
+            return dict(row, ms=ms, ns_per_ray=ms * 1e6 / n, plain_ms=p_ms, bound_ms=b_ms,
+                        bound_by=b_by,
+                        steps_per_ray=float(stats["node_visits"].float().mean()),
+                        leaf_tests_per_ray=float(stats["leaf_visits"].float().mean()))
+
         for name, (args, kw, out_k) in captured.items():
-            out_p = rope.traverse_plain(rt.node_rows, rt.tri_rows, *args,
-                                        n_internal=rt.n_internal, group=rt.group_size, **kw)
-            main_cases[name] = compare_rope("closest", out_k, out_p)
-        if sorted(main_cases) != ["bounce_wave", "camera_wave"]:
+            main_cases[name] = wave_case(rt, args, kw, out_k)
+        if sorted(main_cases) != ["alpha_retrace", "bounce_wave", "camera_wave", "shadow_wave"]:
             raise RuntimeError(f"the rope render's waves were not captured: {sorted(main_cases)}")
 
         # K4's own path: rope.occlusion_packets on the frame's shadow rays,
@@ -801,24 +845,26 @@ def main():
         if harness["rope_occlusion"] <= 0 or sum(harness.values()) != harness["rope_occlusion"]:
             raise RuntimeError(f"rope.occlusion_packets did not launch K4 alone: {harness}")
         kernel_rows[3]["launches"] = harness["rope_occlusion"]
-        out_p = rope.traverse_plain(rk.node_rows, rk.tri_rows, org, d_s, z, t_lim, act,
-                                    n_internal=rk.n_internal, group=rk.group_size,
-                                    occlusion=True, all_definite=False)
         blocked_k, t_k, p_k, u_k, v_k = out_k
-        main_cases["k4_shadow_frame"] = compare_rope(
-            "occlusion", (t_k, p_k, u_k, v_k, blocked_k.float()),
-            (out_p[0], rope.original_ids(rk, out_p[1]), out_p[2], out_p[3], out_p[4]))
+        main_cases["k4_shadow_frame"] = wave_case(
+            rk, (org, d_s, z, t_lim, act), dict(occlusion=True, all_definite=False),
+            (t_k, p_k, u_k, v_k, blocked_k.float()), ids=True)
         cudalib.check_kernel_errors(dev)
         info.update(main_path_cases=main_cases, k4_launches=harness["rope_occlusion"],
                     main_path_check_s=round(time.perf_counter() - t0, 3))
         bad = sum(v["mismatch"] for v in main_cases.values())
         if bad:
-            raise RuntimeError(f"rope main-path kernel/plain mismatches beyond exact-t ties: {bad}")
-        for row, modes in ((kernel_rows[2], ("camera_wave", "bounce_wave")),
+            raise RuntimeError(f"rope main-path K3/K4 against the plain walk: {bad} rays differ")
+        if main_cases["k4_shadow_frame"]["flag_set"] == 0:
+            raise RuntimeError("no blocked ray in K4's frame-shadow run")
+        for row, modes in ((kernel_rows[2], ("camera_wave", "bounce_wave", "shadow_wave",
+                                             "alpha_retrace")),
                            (kernel_rows[3], ("k4_shadow_frame",))):
             row["max_abs_err"] = max([row["max_abs_err"]]
                                      + [main_cases[m]["max_abs_err"] for m in modes])
             row["main_path_rays_checked"] = sum(main_cases[m]["rays"] for m in modes)
+            row["main_path_waves"] = {m: {k: main_cases[m][k] for k in (
+                "rays", "ms", "ns_per_ray", "bound_ms", "bound_by", "plain_ms")} for m in modes}
 
     with Phase("octet") as info:
         by_name = {c[0]: c for c in cases}

@@ -201,8 +201,10 @@ def _rope_bvh(dev, n_tris=500, seed=3, masks=True):
 @pytest.mark.parametrize("masks", [False, True])
 @pytest.mark.parametrize("n", [1, 1000, 70000])
 def test_rope_kernel_matches_plain(dev, mode, masks, n):
-    """K3 / K4 against the plain rope walk: t, u, v bit-equal, prim the same
-    leaf slot (both walk the same order), blocked equal; inactive rays miss."""
+    """K3 / K4 over the card tables against the plain rope walk over the
+    rows: t, prim (the leaf slot), u, v and blocked bit-equal on every ray,
+    exact-t ties included (both walk each ray's octant in the same order);
+    inactive rays miss."""
     kb, _ = _rope_bvh(dev, masks=masks)
     o, d = _rays(n, seed=n + 1)
     o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
@@ -216,9 +218,88 @@ def test_rope_kernel_matches_plain(dev, mode, masks, n):
     assert rope.LAUNCHES["rope_" + mode] == before["rope_" + mode] + 1
     out_p = rope.traverse_plain(kb.node_rows, kb.tri_rows, o, d, t_min, t_limit, active,
                                 n_internal=kb.n_internal, group=kb.group_size, **kw)
-    for a, b in zip(out_k, out_p):
-        assert bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+    for name, a, b in zip(("t", "prim", "u", "v", "blocked"), out_k, out_p):
+        assert bool(torch.equal(a.view(torch.int32), b.view(torch.int32))), name
     assert bool((out_k[1][~active] == -1).all())
+
+
+@pytest.mark.parametrize("masks", [False, True])
+def test_rope_kernel_matches_plain_whole_frame(dev, masks):
+    """K3 on the 2,073,600 camera rays of the bench camera at 1920x1080 on
+    the mini Sponza (G = 8, with and without the mask column), and K4 on
+    shadow rays from their hits to a light: t, prim, u, v and blocked
+    bit-equal to traverse_plain on every ray."""
+    from tpurt_torch.camera import camera_rays_for_rows
+    from tpurt_torch.scene.device import build_device_scene
+    from tpurt_torch.scene.gltf import load_gltf
+    from tpurt_torch.scene.procedural import write_sponza_like_scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = load_gltf(write_sponza_like_scene(os.path.join(tmp, "s.gltf"), columns=2,
+                                                  foliage=8))
+    ds = build_device_scene(scene, device="cpu")
+    tris = ds.tri_pos.numpy()
+    kb = rope.make_kernel_bvh(build_triangle_bvh(tris, 8), tris,
+                              ds.tri_alpha_mask if masks else None, device=dev)
+    assert kb.use_masks == masks
+    cfg = RenderConfig(width=1920, height=1080)
+    cam = Camera.from_angles([0.0, -4.0, 0.0], 0.7, -0.1).to(dev)
+    o, d, _ = camera_rays_for_rows(cam, 0, 1080, 1920, 1080, cfg.tan_half_fov, 0, cfg.seed,
+                                   device=dev)
+    o, d = o.contiguous(), d.contiguous()
+    n = o.shape[0]
+    assert n == 2073600
+    t_min = torch.zeros(n, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    far = torch.full((n,), 1e9, device=dev)
+    kw = dict(n_internal=kb.n_internal, group=kb.group_size)
+    out_k = rope.traverse_cuda(kb, o, d, t_min, far, active, occlusion=False,
+                               all_definite=False)
+    cudalib.check_kernel_errors(dev)
+    out_p = rope.traverse_plain(kb.node_rows, kb.tri_rows, o, d, t_min, far, active,
+                                occlusion=False, all_definite=False, **kw)
+    assert int((out_k[1] >= 0).sum()) > n // 2
+    for name, a, b in zip(("t", "prim", "u", "v", "blocked"), out_k, out_p):
+        assert bool(torch.equal(a.view(torch.int32), b.view(torch.int32))), name
+    hit = out_k[1] >= 0
+    org = (o + torch.where(hit, out_k[0], t_min)[:, None] * d - 0.01 * d).contiguous()
+    light = torch.tensor([0.0, -7.5, 0.0], device=dev)
+    to_l = light[None, :] - org
+    dist = torch.linalg.norm(to_l, dim=-1).contiguous()
+    d_s = (to_l / dist[:, None]).contiguous()
+    out_k = rope.traverse_cuda(kb, org, d_s, t_min, dist, hit, occlusion=True,
+                               all_definite=not masks)
+    cudalib.check_kernel_errors(dev)
+    out_p = rope.traverse_plain(kb.node_rows, kb.tri_rows, org, d_s, t_min, dist, hit,
+                                occlusion=True, all_definite=not masks, **kw)
+    assert int((out_k[4] > 0).sum()) > 0
+    for name, a, b in zip(("t", "prim", "u", "v", "blocked"), out_k, out_p):
+        assert bool(torch.equal(a.view(torch.int32), b.view(torch.int32))), name
+
+
+def test_rope_wrapper_rejects_missing_or_misaligned_card_tables(dev):
+    """A CUDA launch without card tables, with card tables that are not
+    16-byte aligned, or with card tables on another device raises before
+    any launch."""
+    kb, _ = _rope_bvh(dev, n_tris=50)
+    o = torch.zeros((4, 3), device=dev)
+    z = torch.zeros(4, device=dev)
+    act = torch.ones(4, dtype=torch.bool, device=dev)
+    kw = dict(occlusion=False, all_definite=False)
+    before = dict(rope.LAUNCHES)
+    with pytest.raises(ValueError, match="no card tables"):
+        rope.traverse_cuda(dataclasses.replace(kb, card=None), o, o, z, z, act, **kw)
+    flat = torch.zeros(kb.card.boxes.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = flat[1:].view(kb.card.boxes.shape)
+    shifted.copy_(kb.card.boxes)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rope.traverse_cuda(dataclasses.replace(kb, card=dataclasses.replace(kb.card,
+                                                                            boxes=shifted)),
+                           o, o, z, z, act, **kw)
+    on_cpu = rope.RopeCardTables(kb.card.boxes.cpu(), kb.card.links.cpu(), kb.card.tris.cpu())
+    with pytest.raises(ValueError, match="are on cpu"):
+        rope.traverse_cuda(dataclasses.replace(kb, card=on_cpu), o, o, z, z, act, **kw)
+    assert rope.LAUNCHES == before
 
 
 def test_rope_render_launches_k3(dev):
@@ -260,7 +341,8 @@ def test_rope_cuda_tensor_gets_the_kernel_or_an_error(dev):
         rope.traverse_cuda(kb, o, d, z, far, ones.float(), occlusion=False, all_definite=False)
     rows = kb.node_rows.clone()
     rows[:, kb.n_internal:, 7] = 0.0  # every leaf's miss link back to the root
-    broken = rope.KernelBVH(kb.tribvh, rows, kb.tri_rows, kb.tri_order)
+    broken = rope.KernelBVH(kb.tribvh, rows, kb.tri_rows, kb.tri_order,
+                            card=rope.card_tables(rows, kb.tri_rows, kb.group_size))
     before = dict(rope.LAUNCHES)
     rope.traverse_packets(broken, o, d, z, 1e9, ones)
     assert rope.LAUNCHES["rope_closest"] == before["rope_closest"] + 1

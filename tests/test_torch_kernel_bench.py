@@ -101,3 +101,32 @@ def test_each_batch_carries_its_bound(mini_scene):
     stats["box_tests"] = torch.tensor([10 ** 9])
     ms, by, ops, _ = kernel_bench.traversal_bound(stats, 2, 96, 8)
     assert by == "operations" and ms == ops / kernel_bench.PEAK_F32 * 1e3
+
+
+def test_rope_batches_carry_their_bound(mini_scene):
+    """--rope times K3 on the camera, unsorted bounce and unsorted shadow
+    rays and K4 on the bounded shadow rays, over the rope tables of a G=8
+    BVH (the plain walk on the CPU, no launch counted), each beside the
+    bound of rope_bound; rope_bound's formula on hand-made counts."""
+    from tpurt_torch.kernels.experimental import rope
+
+    before = dict(rope.LAUNCHES)
+    res = kernel_bench.main(["--device", "cpu", "--scene", mini_scene, "--rows", "2",
+                             "--row0", "540", "--reps", "1", "--rope"])
+    assert rope.LAUNCHES == before
+    assert res["rope_group"] == kernel_bench.ROPE_GROUP == 8
+    for name in ("rope_camera", "rope_bounce", "rope_shadow_closest", "rope_shadow_occlusion"):
+        assert res[f"{name}_rays"] == 2 * kernel_bench.WIDTH
+        assert res[f"{name}_ms"] > 0.0 and res[f"{name}_ns_per_ray"] > 0.0
+        assert res[f"{name}_bound_ms"] > 0.0
+        assert res[f"{name}_bound_by"] in ("operations", "bytes")
+        assert res[f"{name}_steps_per_ray"] >= 1.0
+    stats = {"node_visits": torch.tensor([30, 50]), "leaf_visits": torch.tensor([2, 4]),
+             "node_rows_read": 7, "leaf_rows_read": 3}
+    ms, by, ops, nbytes = kernel_bench.rope_bound(stats, 2, 80, 8)
+    assert ops == 80 * 25 + 6 * 8 * 60
+    assert nbytes == 2 * 53 + 7 * 32 + 3 * 80 * 4
+    assert by == "bytes" and ms == nbytes / kernel_bench.PEAK_BYTES * 1e3
+    stats["node_visits"] = torch.tensor([10 ** 9])
+    ms, by, ops, _ = kernel_bench.rope_bound(stats, 2, 80, 8)
+    assert by == "operations" and ms == ops / kernel_bench.PEAK_F32 * 1e3

@@ -19,6 +19,7 @@ import torch
 from tpurt_torch.bvh.lbvh import LBVH, TriBVH
 from tpurt_torch.config import KernelPolicy
 from tpurt_torch.kernels.experimental.rope import KernelBVH
+from tpurt_torch.kernels.experimental.rope import card_tables as rope_card_tables
 from tpurt_torch.kernels.wide import (MAX_STACK, WideKernelBVH, _depth_bound, _stack_bound,
                                      card_tables, collapse_to_wide)
 from tpurt_torch.scene.device import DeviceScene, Materials
@@ -67,13 +68,15 @@ def tribvh_from_tpurt(arrays: Mapping[str, object]) -> TriBVH:
 
 
 def kernel_bvh_from_tpurt(arrays: Mapping[str, object], device="cuda") -> KernelBVH:
-    """tpurt's rope tables: `arrays` holds node_rows, tri_rows and the
-    TriBVH fields (see tribvh_from_tpurt)."""
+    """tpurt's rope tables, with K3/K4's card tables built from them on
+    `device`: `arrays` holds node_rows, tri_rows and the TriBVH fields
+    (see tribvh_from_tpurt)."""
     tribvh = tribvh_from_tpurt(arrays)
-    return KernelBVH(tribvh=tribvh,
-                     node_rows=_dev(np.asarray(arrays["node_rows"], np.float32), device),
-                     tri_rows=_dev(np.asarray(arrays["tri_rows"], np.float32), device),
-                     tri_order=_dev(np.asarray(tribvh.tri_order, np.int64), device))
+    node_rows = _dev(np.asarray(arrays["node_rows"], np.float32), device)
+    tri_rows = _dev(np.asarray(arrays["tri_rows"], np.float32), device)
+    return KernelBVH(tribvh=tribvh, node_rows=node_rows, tri_rows=tri_rows,
+                     tri_order=_dev(np.asarray(tribvh.tri_order, np.int64), device),
+                     card=rope_card_tables(node_rows, tri_rows, tribvh.group_size))
 
 
 # tpurt's KernelPolicy fields without a counterpart, at tpurt's defaults

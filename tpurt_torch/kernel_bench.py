@@ -3,7 +3,7 @@ benchmarks/kernel_bench.py).
 
     python -m tpurt_torch.kernel_bench [--reps 5] [--json out.json]
         [--rows 256] [--row0 400] [--group G] [--nosort] [--octet N]
-        [--stepcost K] [--device cuda] [--scene scene.gltf]
+        [--stepcost K] [--rope] [--device cuda] [--scene scene.gltf]
 
 Times the wide kernels on the three ray batches that set frame time, on
 the bench's Sponza-like interior (215,296 triangles) seen by the bench
@@ -27,7 +27,17 @@ K1/K2. `--stepcost K` runs the step-cost instrument K6 on the sorted
 bounce batch: exactly K steps per ray, once per configuration (full,
 -leaf, -push, -extract, -box, each dropping one phase more), and prints
 each one's ms and ns per ray-step and the per-phase differences.
-`--group G` rebuilds the triangle BVH at leaf size G first.
+`--group G` rebuilds the triangle BVH at leaf size G first. `--rope`
+also times the rope kernels over the rope tables of a G = 8 triangle BVH
+of the scene, as the rope render builds them (no mask column, rays not
+sorted): K3 on the camera, unsorted bounce and unsorted shadow rays (the
+rope render traces shadow rays as closest hits) and K4 on the shadow
+rays bounded by the light's distance, each beside its bound
+(`rope_bound`). With `--rows 1080 --row0 0` every batch is a whole frame
+(2,073,600 rays). The rope timings call only `rope.make_kernel_bvh`,
+`rope.traverse_cuda` and `rope.traverse_plain`, so this file can time an
+older tree's rope kernels too (run it with that tree's package first on
+the path).
 
 tpurt's TPU step variants (`--dual`, `--pair`, `--descend`, `--sup`,
 `--race-sup`) and its collapse-mode race are TPU mechanism and are not
@@ -54,6 +64,7 @@ from tpurt_torch.camera import Camera, camera_rays_for_rows
 from tpurt_torch.config import RenderConfig, SphereLight
 from tpurt_torch.integrator.wavefront import tile_pack, tile_shape
 from tpurt_torch.kernels import wide
+from tpurt_torch.kernels.experimental import rope
 from tpurt_torch.renderer import Renderer
 from tpurt_torch.scene.procedural import write_sponza_like_scene
 
@@ -64,6 +75,7 @@ LIGHTS = (SphereLight((-8.0, -5.0, -2.0), 0.1, (0.8, 0.6, 0.6), 500.0),
           SphereLight((8.0, -5.0, -2.5), 0.1, (0.4, 0.7, 0.6), 500.0),
           SphereLight((0.0, -7.5, 0.0), 0.5, (0.9, 0.9, 0.7), 1000.0))
 WIDTH, HEIGHT = 1920, 1080
+ROPE_GROUP = 8  # the leaf size of the smoke's rope render
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32 = 67e12
@@ -93,6 +105,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--stepcost", type=int, default=0,
                     help="run the step-cost instrument K6 at this many "
                          "steps per ray (e.g. 256)")
+    ap.add_argument("--rope", action="store_true",
+                    help="also time K3/K4 over the rope tables of a G=8 "
+                         "triangle BVH of the scene")
+    ap.add_argument("--rope-variants", action="store_true",
+                    help="with --rope, time every launch variant of K3/K4 "
+                         "(rope.VARIANTS) in turns")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--scene", default=None,
                     help="glTF scene to load instead of writing the bench's "
@@ -143,8 +161,9 @@ def bench_batches(r: Renderer, kbvh: wide.WideKernelBVH, rows: int = 256, row0: 
                   seed: int = 7) -> dict:
     """The three ray batches of benchmarks/kernel_bench.py on `kbvh`'s
     device: `camera` (o, d), `bounce` (o, d) sorted, `bounce_unsorted`
-    (o, d), `shadow` (o, d, t_limit) sorted. Bounce directions are
-    uniform, from numpy's RandomState(seed)."""
+    (o, d), `shadow` (o, d, t_limit) sorted, `shadow_unsorted` (o, d,
+    t_limit). Bounce directions are uniform, from numpy's
+    RandomState(seed)."""
     cfg = r.config
     dev = kbvh.node_rows.device
     o, d, _ = camera_rays_for_rows(r.camera, row0, rows, cfg.width, cfg.height,
@@ -171,7 +190,7 @@ def bench_batches(r: Renderer, kbvh: wide.WideKernelBVH, rows: int = 256, row0: 
     _, (oos, dls, tl) = _sort_rays(_octant_morton_key(kbvh, oo, dl, active), (oo, dl, dist))
     c = (lambda *xs: tuple(x.contiguous() for x in xs))
     return {"camera": c(o, d), "bounce": c(obs, dbs), "bounce_unsorted": c(ob, dirs),
-            "shadow": c(oos, dls, tl)}
+            "shadow": c(oos, dls, tl), "shadow_unsorted": c(oo, dl, dist)}
 
 
 def traversal_bound(stats: dict, n: int, row_width: int, group: int) -> tuple:
@@ -187,6 +206,94 @@ def traversal_bound(stats: dict, n: int, row_width: int, group: int) -> tuple:
               + stats["leaf_rows_read"] * row_width * 4)
     t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
+def rope_bound(stats: dict, n: int, row_width: int, group: int) -> tuple:
+    """traversal_bound for the rope walk, from the stats of
+    rope.traverse_plain: one box test per step, G triangle tests per leaf
+    whose box is hit; rays read once (o, d, t_min, t_limit, active: 33 B)
+    and results written once (t, prim, u, v, blocked: 20 B), each 32 B
+    node row and each leaf row read once."""
+    ops = (float(stats["node_visits"].sum()) * OPS_PER_BOX
+           + float(stats["leaf_visits"].sum()) * group * OPS_PER_TRIANGLE)
+    nbytes = (n * (33 + 20) + stats["node_rows_read"] * 8 * 4
+              + stats["leaf_rows_read"] * row_width * 4)
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
+def rope_batches(b: dict, t_max: float) -> list:
+    """(name, o, d, t_limit, occlusion) of the rope timings: the rope
+    render sorts no rays, and traces shadow rays as closest hits (K3) up
+    to t_max; K4 takes them bounded by the light's distance."""
+    o = b["camera"][0]
+    far = torch.full((o.shape[0],), float(np.float32(t_max)), dtype=torch.float32,
+                     device=o.device)
+    return [("rope_camera", *b["camera"], far, False),
+            ("rope_bounce", *b["bounce_unsorted"], far, False),
+            ("rope_shadow_closest", *b["shadow_unsorted"][:2], far, False),
+            ("rope_shadow_occlusion", *b["shadow_unsorted"], True)]
+
+
+def rope_timings(r: Renderer, b: dict, reps: int, variants: bool = False) -> dict:
+    """K3/K4 over the rope tables of a G = ROPE_GROUP triangle BVH of the
+    scene on the rope batches: ms, ns per ray and the bound of each. With
+    `variants`, every entry of rope.VARIANTS is timed on every batch, in
+    turns (the list forward, then backward), and its results are held
+    bit-equal to the first entry's."""
+    dev = r.device
+    tri = r.device_scene.tri_pos.cpu().numpy()
+    rk = rope.make_kernel_bvh(build_triangle_bvh(tri, group_size=ROPE_GROUP), tri, device=dev)
+    out = {"rope_group": rk.group_size, "rope_nodes": int(rk.node_rows.shape[1])}
+    for name, o, d, t_limit, occlusion in rope_batches(b, r.config.t_max):
+        n = o.shape[0]
+        t_min = torch.zeros(n, dtype=torch.float32, device=dev)
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+        kw = dict(occlusion=occlusion, all_definite=True)
+
+        def kern():
+            if dev.type == "cuda":
+                return rope.traverse_cuda(rk, o, d, t_min, t_limit, active, **kw)
+            return rope.traverse_plain(rk.node_rows, rk.tri_rows, o, d, t_min, t_limit,
+                                       active, n_internal=rk.n_internal,
+                                       group=rk.group_size, **kw)
+
+        stats = {}
+        rope.traverse_plain(rk.node_rows, rk.tri_rows, o, d, t_min, t_limit, active,
+                            n_internal=rk.n_internal, group=rk.group_size, stats=stats, **kw)
+        bound_ms, bound_by, _, _ = rope_bound(stats, n, rk.tri_rows.shape[1], rk.group_size)
+        out[f"{name}_rays"] = n
+        out[f"{name}_bound_ms"] = bound_ms
+        out[f"{name}_bound_by"] = bound_by
+        out[f"{name}_steps_per_ray"] = float(stats["node_visits"].float().mean())
+        out[f"{name}_leaf_tests_per_ray"] = float(stats["leaf_visits"].float().mean())
+        if not variants:
+            ms = median_ms(kern, reps, dev)
+            out[f"{name}_ms"] = ms
+            out[f"{name}_ns_per_ray"] = ms * 1e6 / n
+            continue
+        saved = dict(rope.VARIANT)
+        try:
+            ref = None
+            times = {v: [] for v in rope.VARIANTS}
+            for order in (list(rope.VARIANTS), list(rope.VARIANTS)[::-1]):
+                for v in order:
+                    rope.VARIANT.update(rope.VARIANTS[v])
+                    times[v].append(median_ms(kern, reps, dev))
+                    res = kern()
+                    if ref is None:
+                        ref = res
+                    bad = sum(int((a.view(torch.int32) != c.view(torch.int32)).sum())
+                              for a, c in zip(res, ref))
+                    if bad:
+                        raise RuntimeError(f"{name}: variant {v} differs from "
+                                           f"{list(rope.VARIANTS)[0]} in {bad} values")
+        finally:
+            rope.VARIANT.clear()
+            rope.VARIANT.update(saved)
+        for v, ts in times.items():
+            out[f"{name}_{v}_ms"] = ts
+    return out
 
 
 def median_ms(fn, reps: int, device: torch.device) -> float:
@@ -284,6 +391,8 @@ def main(argv=None) -> dict:
         results[f"{name}_mrays"] = n / ms / 1e3
         results[f"{name}_bound_ms"] = bound_ms
         results[f"{name}_bound_by"] = bound_by
+    if args.rope:
+        results.update(rope_timings(r, b, args.reps, args.rope_variants))
     if args.stepcost:
         table = stepcost_table(kbvh, *b["bounce"], args.stepcost, args.reps, t_max)
         for name, _ in wide.STEPCOST_CONFIGS:

@@ -11,14 +11,16 @@ Three parts:
    ropes as f32-exact integers. A leaf row holds the leaf's G triangles
    (G*9 floats, in `tri_order`) and, when G*10 <= 128, the G alpha masks
    (bits 0-15 transparent 4x4 cells, bit 16 alpha-testable).
+   `card_tables` copies the same numbers once per BVH into the layout
+   K3/K4 read with 16-byte loads (see `RopeCardTables`).
 2. The plain PyTorch walks (`traverse_plain`): every live ray takes one
    rope step per iteration, all rays at once. They have the kernels'
    contract and arithmetic order and serve CPU tensors and the tests.
 3. The kernel wrappers `traverse_packets` / `occlusion_packets`
    (tpurt's signatures, without `interpret`). A CPU tensor goes to the
-   plain walk; a CUDA tensor goes to csrc/rope_traverse.cu (K3, K4),
-   built with nvcc on first use and bound through ctypes. There is no
-   fallback from one to the other.
+   plain walk over the rows; a CUDA tensor goes to csrc/rope_traverse.cu
+   (K3, K4) over the card tables, built with nvcc on first use and bound
+   through ctypes. There is no fallback from one to the other.
 
 The walk. A ray starts at the root if active (else at the END sentinel
 M); at node n it tests n's box against (t_min, t_best); an internal node
@@ -50,6 +52,7 @@ import torch
 from tpurt_torch.bvh.lbvh import TriBVH
 from tpurt_torch.kernels import cudalib
 from tpurt_torch.kernels.intersect import mask_cell, ray_triangle_rows
+from tpurt_torch.kernels.wide import _exact_ints
 
 PACKET = 1024  # tpurt's rays per packet; the kernels here have no packets
 _LANE = 128
@@ -61,6 +64,24 @@ LAUNCHES = {"rope_closest": 0, "rope_occlusion": 0}
 
 
 @dataclasses.dataclass(frozen=True)
+class RopeCardTables:
+    """tpurt's rope rows, the same numbers laid out for K3/K4's 16-byte
+    loads (int32 words; floats as their bits):
+
+    boxes (M, 8):    node n is [lo.x lo.y lo.z 0] [hi.x hi.y hi.z 0], once
+                     for all octants (tpurt's rows repeat it per octant);
+    links (8, M, 2): [first, skip] of node n in octant o, M the END
+                     sentinel, first 0 for leaves;
+    tris  (L, G, 12): triangle k of leaf l is [v0.xyz mask] [e1.xyz 0]
+                     [e2.xyz 0], e1 = v1 - v0 and e2 = v2 - v0 in f32, the
+                     mask 0 where the leaf rows have no mask column."""
+
+    boxes: torch.Tensor
+    links: torch.Tensor
+    tris: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
 class KernelBVH:
     """TriBVH plus its packed rope tables on a device."""
 
@@ -68,6 +89,7 @@ class KernelBVH:
     node_rows: torch.Tensor  # (8, M, 8) f32
     tri_rows: torch.Tensor   # (L, G*9 [+ G]) f32
     tri_order: torch.Tensor  # (L*G,) int64: leaf slot -> original triangle id
+    card: Optional[RopeCardTables] = None  # K3/K4's copy of the tables
 
     @property
     def group_size(self) -> int:
@@ -112,16 +134,58 @@ def _as_np(x):
     return x.cpu().numpy()
 
 
+def card_tables(node_rows: torch.Tensor, tri_rows: torch.Tensor,
+                group: int) -> RopeCardTables:
+    """K3/K4's copy of tpurt's rope rows (see RopeCardTables), built on
+    their device. Every float is copied, or is one f32 subtraction (the
+    edges); links and masks are converted to int32 once, here. Raises
+    unless every octant's rows hold the same boxes, the links are exact
+    integers in [0, M] (M, below 2^24, is the END sentinel), the leaf rows
+    hold G triangles with or without a mask column, and the masks are
+    exact integers below 2^17 (bits 0-15 cells, bit 16 alpha-testable)."""
+    m = node_rows.shape[1]
+    if m >= 1 << 24:
+        raise ValueError(f"{m} nodes: links past 2^24 do not fit the tables")
+    bits = (lambda x: x.contiguous().view(torch.int32))
+    box = bits(node_rows[..., :6])
+    if not torch.equal(box, box[:1].expand_as(box)):
+        raise ValueError("node boxes differ between octants")
+    zero = torch.zeros((m, 1), dtype=torch.int32, device=node_rows.device)
+    boxes = torch.cat([box[0, :, 0:3], zero, box[0, :, 3:6], zero], dim=-1)
+    links = _exact_ints(node_rows[..., 6:8], "link")
+    if bool((links > m).any()):
+        raise ValueError(f"link: values past the END sentinel M = {m}")
+
+    g = group
+    n_leaf, width = tri_rows.shape
+    if width not in (9 * g, 10 * g):
+        raise ValueError(f"leaf rows of width {width} do not hold G={g} triangles")
+    v = tri_rows[:, :9 * g].reshape(n_leaf, g, 3, 3)
+    v0 = v[:, :, 0]
+    none = torch.zeros((n_leaf, g, 1), dtype=torch.int32, device=tri_rows.device)
+    mask = none
+    if width == 10 * g:
+        mask = _exact_ints(tri_rows[:, 9 * g:], "mask")[..., None]
+        if bool((mask >= 1 << 17).any()):
+            raise ValueError("mask: bits above bit 16")
+    tris = torch.cat([bits(v0), mask, bits(v[:, :, 1] - v0), none,
+                      bits(v[:, :, 2] - v0), none], dim=-1)
+    return RopeCardTables(boxes=boxes.contiguous(), links=links.contiguous(),
+                          tris=tris.contiguous())
+
+
 def make_kernel_bvh(tribvh: TriBVH, tri_pos, tri_alpha_mask=None,
                     device="cuda") -> KernelBVH:
-    """Pack the rope tables and move them to `device` once."""
+    """Pack the rope tables, move them to `device` once and build K3/K4's
+    card tables there."""
     node_rows, tri_rows = pack_scene_for_kernel(tribvh, _as_np(tri_pos),
                                                 _as_np(tri_alpha_mask))
+    node_rows = torch.from_numpy(np.ascontiguousarray(node_rows)).to(device)
+    tri_rows = torch.from_numpy(np.ascontiguousarray(tri_rows)).to(device)
     return KernelBVH(
-        tribvh=tribvh,
-        node_rows=torch.from_numpy(np.ascontiguousarray(node_rows)).to(device),
-        tri_rows=torch.from_numpy(np.ascontiguousarray(tri_rows)).to(device),
-        tri_order=torch.from_numpy(np.asarray(tribvh.tri_order, np.int64)).to(device))
+        tribvh=tribvh, node_rows=node_rows, tri_rows=tri_rows,
+        tri_order=torch.from_numpy(np.asarray(tribvh.tri_order, np.int64)).to(device),
+        card=card_tables(node_rows, tri_rows, tribvh.group_size))
 
 
 def kernel_supported(tribvh: TriBVH) -> bool:
@@ -266,33 +330,63 @@ def traverse_plain(node_rows, tri_rows, o, d, t_min, t_limit, active, *,
 # ---- the CUDA kernel: build, bind, launch ----------------------------------
 
 _LIB = "rope_traverse"
-_ARGTYPES = {name: cudalib.argtypes("piipiiii" + "p" * 10 + "ipp")
+_ARGTYPES = {name: cudalib.argtypes("ppiipiiipppppppppppipiiipp")
              for name in ("tpurt_rope_closest", "tpurt_rope_occlusion")}
+
+# launch shape of K3/K4 (while_while: node steps in an inner loop, the leaf
+# tests outside it; threads per block; persistent blocks fed by an atomic
+# ray counter; octant_sort: rays grouped by octant through an index array)
+VARIANT = {"while_while": True, "threads": 128, "persistent": False, "octant_sort": False}
+VARIANTS = {
+    "ww128": dict(VARIANT),
+    "ifif128": dict(VARIANT, while_while=False),
+    "ww64": dict(VARIANT, threads=64),
+    "ww256": dict(VARIANT, threads=256),
+    "ifif256": dict(VARIANT, while_while=False, threads=256),
+    "ww128_persistent": dict(VARIANT, persistent=True),
+    "ww128_octsort": dict(VARIANT, octant_sort=True),
+}
+
+
+def _check_card(kbvh: KernelBVH, dev) -> RopeCardTables:
+    """Raise unless K3/K4's card tables are there, on the rays' device,
+    int32, contiguous, 16-byte aligned and of the tables' shape."""
+    card = kbvh.card
+    if card is None:
+        raise ValueError("the BVH has no card tables: build it with make_kernel_bvh, "
+                         "or give it card=card_tables(...)")
+    m = kbvh.node_rows.shape[1]
+    g = kbvh.group_size
+    if not 1 <= g <= KERNEL_GROUP:
+        raise ValueError(f"group size {g} outside the kernel's 1..{KERNEL_GROUP}")
+    for name, x, shape in (("card boxes", card.boxes, (m, 8)),
+                           ("card links", card.links, (8, m, 2)),
+                           ("card tris", card.tris, (kbvh.tribvh.bvh.num_leaves, g, 12))):
+        if x.device != dev:
+            raise ValueError(f"{name} are on {x.device}, rays are on {dev}")
+        cudalib.check(x, name, shape, torch.int32)
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} are not 16-byte aligned")
+    return card
 
 
 def traverse_cuda(kbvh: KernelBVH, o, d, t_min, t_limit, active, *, occlusion: bool,
                   all_definite: bool):
-    """Launch K3 (closest) or K4 (occlusion) on the current stream. Returns
-    (t, prim, u, v, blocked) as traverse_plain does. Does not wait for the
-    card: a walk that hits its step cap surfaces at the next
-    cudalib.check_kernel_errors."""
+    """Launch K3 (closest) or K4 (occlusion) over the card tables on the
+    current stream. Returns (t, prim, u, v, blocked) as traverse_plain
+    does, bit for bit. Does not wait for the card: a walk that hits its
+    step cap surfaces at the next cudalib.check_kernel_errors."""
     dev = o.device
     n = o.shape[0]
-    for name, x in (("node_rows", kbvh.node_rows), ("tri_rows", kbvh.tri_rows),
-                    ("d", d), ("t_min", t_min), ("t_limit", t_limit), ("active", active)):
+    for name, x in (("d", d), ("t_min", t_min), ("t_limit", t_limit), ("active", active)):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, rays are on {dev}")
-    g = kbvh.group_size
-    m = kbvh.node_rows.shape[1]
     cudalib.check(o, "o", (n, 3))
     cudalib.check(d, "d", (n, 3))
     cudalib.check(t_min, "t_min", (n,))
     cudalib.check(t_limit, "t_limit", (n,))
     cudalib.check(active, "active", (n,), torch.bool)
-    cudalib.check(kbvh.node_rows, "node_rows", (8, m, _ROW))
-    if kbvh.tri_rows.shape[1] not in (g * 9, g * 10) or not 1 <= g <= KERNEL_GROUP:
-        raise ValueError(f"leaf rows of width {kbvh.tri_rows.shape[1]} do not hold G={g}")
-    cudalib.check(kbvh.tri_rows, "tri_rows", (kbvh.tribvh.bvh.num_leaves, kbvh.tri_rows.shape[1]))
+    card = _check_card(kbvh, dev)
     out = (torch.empty(n, dtype=torch.float32, device=dev),
            torch.empty(n, dtype=torch.int32, device=dev),
            torch.empty(n, dtype=torch.float32, device=dev),
@@ -302,12 +396,20 @@ def traverse_cuda(kbvh: KernelBVH, o, d, t_min, t_limit, active, *, occlusion: b
         return out
     lib = cudalib.load(_LIB, _ARGTYPES)
     fn = lib.tpurt_rope_occlusion if occlusion else lib.tpurt_rope_closest
-    rc = fn(kbvh.node_rows.data_ptr(), m, kbvh.n_internal,
-            kbvh.tri_rows.data_ptr(), kbvh.tri_rows.shape[1], g,
+    idx = None
+    if VARIANT["octant_sort"]:
+        octant = (d[:, 0] < 0).to(torch.uint8) * 4 + (d[:, 1] < 0) * 2 + (d[:, 2] < 0)
+        idx = torch.sort(octant.to(torch.uint8))[1].to(torch.int32)
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    rc = fn(card.boxes.data_ptr(), card.links.data_ptr(), kbvh.node_rows.shape[1],
+            kbvh.n_internal, card.tris.data_ptr(), kbvh.group_size,
             int(kbvh.use_masks), int(all_definite),
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
-            active.data_ptr(), *(x.data_ptr() for x in out), n,
-            cudalib.error_word(dev).data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            active.data_ptr(), None if idx is None else idx.data_ptr(),
+            *(x.data_ptr() for x in out), n,
+            cudalib.error_word(dev).data_ptr(), int(VARIANT["while_while"]),
+            int(VARIANT["threads"]), int(VARIANT["persistent"]), counter.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     cudalib.launch_check(rc, "rope traversal")
     LAUNCHES["rope_occlusion" if occlusion else "rope_closest"] += 1
     return out
