@@ -61,7 +61,7 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kErrStepCap = 2;  // cudalib.ERR_ROPE_STEPS
 constexpr int kWordsPerTri = 3;  // float4 words per triangle
 
@@ -78,7 +78,6 @@ struct Args {
   const float* t_min;
   const float* t_limit;
   const uint8_t* active;
-  const int* idx;  // ray order (octant-grouped), nullptr: thread i takes ray i
   float* t_out;
   int* prim_out;
   float* u_out;
@@ -89,83 +88,77 @@ struct Args {
   int* counter;  // persistent launches: the next ray to hand out
 };
 
-template <bool Occlusion, bool Masks, bool WhileWhile>
-__device__ __forceinline__ void walk_ray(const Args& a, int j) {
-  const float ox = a.o[3 * j + 0], oy = a.o[3 * j + 1], oz = a.o[3 * j + 2];
-  const float dx = a.d[3 * j + 0], dy = a.d[3 * j + 1], dz = a.d[3 * j + 2];
-  const float t_min = a.t_min[j];
-  const float tiny = 1e-20f;
-  // sign / max(|d|, 1e-20), as pallas_traverse.py:121-123
-  const float inv_x = (dx >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dx), tiny);
-  const float inv_y = (dy >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dy), tiny);
-  const float inv_z = (dz >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dz), tiny);
-  const int oct = (dx < 0.0f ? 4 : 0) + (dy < 0.0f ? 2 : 0) + (dz < 0.0f ? 1 : 0);
-  const int2* links = a.links + (size_t)oct * a.m;
+// One ray's walk: start() loads ray j, advance() runs node steps until a
+// leaf whose box is hit and then that leaf's G triangle tests (one round
+// of the while-while loop), finish() writes the results. The walk is over
+// when node == m.
+template <bool Occlusion, bool Masks>
+struct RopeRay {
+  float ox, oy, oz, dx, dy, dz, inv_x, inv_y, inv_z, t_min;
+  const int2* links;
+  float t_best, uu, vv;
+  int prim, node, steps, j;
+  bool blocked;
 
-  float t_best = a.t_limit[j];
-  int prim = -1;
-  float uu = 0.0f, vv = 0.0f;
-  bool blocked = false;
+  __device__ __forceinline__ void start(const Args& a, int ray) {
+    j = ray;
+    ox = a.o[3 * j + 0];
+    oy = a.o[3 * j + 1];
+    oz = a.o[3 * j + 2];
+    dx = a.d[3 * j + 0];
+    dy = a.d[3 * j + 1];
+    dz = a.d[3 * j + 2];
+    t_min = a.t_min[j];
+    const float tiny = 1e-20f;
+    // sign / max(|d|, 1e-20), as pallas_traverse.py:121-123
+    inv_x = (dx >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dx), tiny);
+    inv_y = (dy >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dy), tiny);
+    inv_z = (dz >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dz), tiny);
+    const int oct = (dx < 0.0f ? 4 : 0) + (dy < 0.0f ? 2 : 0) + (dz < 0.0f ? 1 : 0);
+    links = a.links + (size_t)oct * a.m;
+    t_best = a.t_limit[j];
+    prim = -1;
+    uu = 0.0f;
+    vv = 0.0f;
+    blocked = false;
+    steps = 0;
+    node = a.active[j] ? 0 : a.m;
+  }
 
-  const int end = a.m;
-  const int cap = 4 * a.m;
-  int steps = 0;
-  int node = a.active[j] ? 0 : end;
-
-  // one node step: the box test against (t_min, t_best) and both links
-  auto step = [&](int nd, int2& ln) -> bool {
-    const float4 lo = __ldg(a.boxes + 2 * nd);
-    const float4 hi = __ldg(a.boxes + 2 * nd + 1);
-    ln = __ldg(links + nd);
-    const float t0x = (lo.x - ox) * inv_x;
-    const float t1x = (hi.x - ox) * inv_x;
-    const float t0y = (lo.y - oy) * inv_y;
-    const float t1y = (hi.y - oy) * inv_y;
-    const float t0z = (lo.z - oz) * inv_z;
-    const float t1z = (hi.z - oz) * inv_z;
-    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                           fmaxf(fminf(t0z, t1z), t_min));
-    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                           fminf(fmaxf(t0z, t1z), t_best));
-    return tn <= tf;
-  };
-
-  while (node != end) {
+  __device__ __forceinline__ void advance(const Args& a) {
+    const int end = a.m;
     int leaf = -1, next = end;
-    if (WhileWhile) {
-      // node steps until a leaf whose box is hit, or the end
-      while (node != end) {
-        if (steps++ >= cap) {
-          atomicOr(a.err, kErrStepCap);
-          node = end;
-          break;
-        }
-        int2 ln;
-        const bool hit = step(node, ln);
-        if (hit && node >= a.n_internal) {
-          leaf = node - a.n_internal;
-          next = ln.y;
-          break;
-        }
-        node = hit ? ln.x : ln.y;
-      }
-      if (leaf < 0) break;
-    } else {
-      // one step per iteration, leaf or not (the first version's loop)
-      if (steps++ >= cap) {
+    // node steps until a leaf whose box is hit, or the end
+    while (node != end) {
+      if (steps++ >= 4 * a.m) {  // a broken rope: at most 4*M steps
         atomicOr(a.err, kErrStepCap);
+        node = end;
+        return;
+      }
+      const float4 lo = __ldg(a.boxes + 2 * node);
+      const float4 hi = __ldg(a.boxes + 2 * node + 1);
+      const int2 ln = __ldg(links + node);
+      const float t0x = (lo.x - ox) * inv_x;
+      const float t1x = (hi.x - ox) * inv_x;
+      const float t0y = (lo.y - oy) * inv_y;
+      const float t1y = (hi.y - oy) * inv_y;
+      const float t0z = (lo.z - oz) * inv_z;
+      const float t1z = (hi.z - oz) * inv_z;
+      const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                             fmaxf(fminf(t0z, t1z), t_min));
+      const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                             fminf(fmaxf(t0z, t1z), t_best));
+      const bool hit = tn <= tf;
+      if (hit && node >= a.n_internal) {
+        leaf = node - a.n_internal;
+        next = ln.y;
         break;
       }
-      int2 ln;
-      const bool hit = step(node, ln);
-      if (node < a.n_internal || !hit) {
-        node = hit ? ln.x : ln.y;
-        continue;
-      }
-      leaf = node - a.n_internal;
-      next = ln.y;
+      node = hit ? ln.x : ln.y;
     }
+    if (leaf < 0) return;
 
+    // the leaf's triangles, before the next node step
     const float4* tri = a.tris + (size_t)leaf * a.group * kWordsPerTri;
     for (int k = 0; k < a.group; ++k) {
       const float4 w0 = __ldg(tri + kWordsPerTri * k);
@@ -204,29 +197,35 @@ __device__ __forceinline__ void walk_ray(const Args& a, int j) {
       uu = u;
       vv = w;
     }
-    node = next;
-    if (Occlusion && blocked) break;
+    node = (Occlusion && blocked) ? end : next;
   }
-  a.t_out[j] = t_best;
-  a.prim_out[j] = prim;
-  a.u_out[j] = uu;
-  a.v_out[j] = vv;
-  a.blocked_out[j] = blocked ? 1.0f : 0.0f;
-}
 
-template <bool Occlusion, bool Masks, bool WhileWhile>
-__global__ void __launch_bounds__(kMaxThreads)
+  __device__ __forceinline__ void finish(const Args& a) const {
+    a.t_out[j] = t_best;
+    a.prim_out[j] = prim;
+    a.u_out[j] = uu;
+    a.v_out[j] = vv;
+    a.blocked_out[j] = blocked ? 1.0f : 0.0f;
+  }
+};
+
+// mode 0: one thread per ray over a grid that covers the rays
+template <bool Occlusion, bool Masks, int MinBlocks>
+__global__ void __launch_bounds__(kThreads, MinBlocks)
 rope_walk(const Args a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
-  walk_ray<Occlusion, Masks, WhileWhile>(a, a.idx ? a.idx[i] : i);
+  RopeRay<Occlusion, Masks> r;
+  r.start(a, i);
+  while (r.node != a.m) r.advance(a);
+  r.finish(a);
 }
 
-// Persistent variant: as many blocks as stay resident, each warp takes 32
-// rays at a time from an atomic counter until none is left.
-template <bool Occlusion, bool Masks, bool WhileWhile>
-__global__ void __launch_bounds__(kMaxThreads)
-rope_walk_persistent(const Args a) {
+// mode 1: resident blocks; each warp takes 32 rays at a time from an
+// atomic counter until none is left
+template <bool Occlusion, bool Masks, int MinBlocks>
+__global__ void __launch_bounds__(kThreads, MinBlocks)
+rope_walk_batches(const Args a) {
   const int lane = threadIdx.x & 31;
   while (true) {
     int base = 0;
@@ -234,53 +233,86 @@ rope_walk_persistent(const Args a) {
     base = __shfl_sync(0xffffffffu, base, 0);
     if (base >= a.n) return;
     const int i = base + lane;
-    if (i < a.n) walk_ray<Occlusion, Masks, WhileWhile>(a, a.idx ? a.idx[i] : i);
+    if (i < a.n) {
+      RopeRay<Occlusion, Masks> r;
+      r.start(a, i);
+      while (r.node != a.m) r.advance(a);
+      r.finish(a);
+    }
     __syncwarp();
   }
 }
 
-template <bool Occlusion, bool Masks, bool WhileWhile>
-int launch_walk(const Args& a, int threads, int persistent, cudaStream_t stream) {
-  if (persistent) {
-    auto kernel = rope_walk_persistent<Occlusion, Masks, WhileWhile>;
-    int per_sm = 0, sms = 0, dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-    cudaMemsetAsync(a.counter, 0, sizeof(int), stream);
-    const int want = (a.n + threads - 1) / threads;
-    int blocks = per_sm * sms;
-    if (blocks > want) blocks = want;
-    if (blocks < 1) blocks = 1;
-    kernel<<<blocks, threads, 0, stream>>>(a);
-  } else {
-    const int blocks = (a.n + threads - 1) / threads;
-    rope_walk<Occlusion, Masks, WhileWhile><<<blocks, threads, 0, stream>>>(a);
+// mode 2: resident blocks; a lane whose walk is over writes its ray and
+// takes the next one from the counter (one atomic per warp for the lanes
+// that ask together), so no lane idles while its warp mates walk
+template <bool Occlusion, bool Masks, int MinBlocks>
+__global__ void __launch_bounds__(kThreads, MinBlocks)
+rope_walk_refill(const Args a) {
+  const unsigned lane = threadIdx.x & 31;
+  RopeRay<Occlusion, Masks> r;
+  r.node = a.m;
+  bool have = false;
+  while (true) {
+    if (r.node == a.m) {
+      if (have) r.finish(a);
+      const unsigned need = __activemask();
+      const int leader = __ffs(need) - 1;
+      int base = 0;
+      if ((int)lane == leader) base = atomicAdd(a.counter, __popc(need));
+      base = __shfl_sync(need, base, leader);
+      const int i = base + __popc(need & ((1u << lane) - 1u));
+      if (i >= a.n) return;
+      r.start(a, i);
+      have = true;
+      continue;  // an inactive ray is over at once
+    }
+    r.advance(a);
   }
+}
+
+template <bool Occlusion, bool Masks, int MinBlocks>
+int launch_walk(const Args& a, int mode, cudaStream_t stream) {
+  if (mode == 0) {
+    const int blocks = (a.n + kThreads - 1) / kThreads;
+    rope_walk<Occlusion, Masks, MinBlocks><<<blocks, kThreads, 0, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  auto kernel = mode == 1 ? rope_walk_batches<Occlusion, Masks, MinBlocks>
+                          : rope_walk_refill<Occlusion, Masks, MinBlocks>;
+  int per_sm = 0, sms = 0, dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  cudaMemsetAsync(a.counter, 0, sizeof(int), stream);
+  const int want = (a.n + kThreads - 1) / kThreads;
+  int blocks = per_sm * sms;
+  if (blocks > want) blocks = want;
+  if (blocks < 1) blocks = 1;
+  kernel<<<blocks, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <bool Occlusion>
 int launch(const void* boxes, const void* links, int m, int n_internal, const void* tris,
            int group, int use_masks, int all_definite, const void* o, const void* d,
-           const void* t_min, const void* t_limit, const void* active, const void* idx,
-           void* t_out, void* prim_out, void* u_out, void* v_out, void* blocked_out,
-           int n, void* err, int while_while, int threads, int persistent, void* counter,
-           void* stream) {
+           const void* t_min, const void* t_limit, const void* active, void* t_out,
+           void* prim_out, void* u_out, void* v_out, void* blocked_out, int n, void* err,
+           int mode, int capped, void* counter, void* stream) {
   if (n <= 0) return 0;
-  if (threads < 32 || threads > kMaxThreads || threads % 32) return (int)cudaErrorInvalidValue;
+  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
   const Args a{(const float4*)boxes, (const int2*)links, m, n_internal, (const float4*)tris,
                group, all_definite, (const float*)o, (const float*)d, (const float*)t_min,
-               (const float*)t_limit, (const uint8_t*)active, (const int*)idx,
-               (float*)t_out, (int*)prim_out, (float*)u_out, (float*)v_out,
-               (float*)blocked_out, n, (int*)err, (int*)counter};
+               (const float*)t_limit, (const uint8_t*)active, (float*)t_out, (int*)prim_out,
+               (float*)u_out, (float*)v_out, (float*)blocked_out, n, (int*)err,
+               (int*)counter};
   cudaStream_t s = (cudaStream_t)stream;
   if (use_masks) {
-    return while_while ? launch_walk<Occlusion, true, true>(a, threads, persistent, s)
-                       : launch_walk<Occlusion, true, false>(a, threads, persistent, s);
+    return capped ? launch_walk<Occlusion, true, 12>(a, mode, s)
+                  : launch_walk<Occlusion, true, 1>(a, mode, s);
   }
-  return while_while ? launch_walk<Occlusion, false, true>(a, threads, persistent, s)
-                     : launch_walk<Occlusion, false, false>(a, threads, persistent, s);
+  return capped ? launch_walk<Occlusion, false, 12>(a, mode, s)
+                : launch_walk<Occlusion, false, 1>(a, mode, s);
 }
 
 }  // namespace
@@ -290,27 +322,23 @@ extern "C" {
 int tpurt_rope_closest(const void* boxes, const void* links, int m, int n_internal,
                        const void* tris, int group, int use_masks, int all_definite,
                        const void* o, const void* d, const void* t_min, const void* t_limit,
-                       const void* active, const void* idx, void* t_out, void* prim_out,
-                       void* u_out, void* v_out, void* blocked_out, int n, void* err,
-                       int while_while, int threads, int persistent, void* counter,
-                       void* stream) {
+                       const void* active, void* t_out, void* prim_out, void* u_out,
+                       void* v_out, void* blocked_out, int n, void* err, int mode, int capped,
+                       void* counter, void* stream) {
   return launch<false>(boxes, links, m, n_internal, tris, group, use_masks, all_definite, o,
-                       d, t_min, t_limit, active, idx, t_out, prim_out, u_out, v_out,
-                       blocked_out, n, err, while_while, threads, persistent, counter,
-                       stream);
+                       d, t_min, t_limit, active, t_out, prim_out, u_out, v_out, blocked_out,
+                       n, err, mode, capped, counter, stream);
 }
 
 int tpurt_rope_occlusion(const void* boxes, const void* links, int m, int n_internal,
                          const void* tris, int group, int use_masks, int all_definite,
                          const void* o, const void* d, const void* t_min,
-                         const void* t_limit, const void* active, const void* idx,
-                         void* t_out, void* prim_out, void* u_out, void* v_out,
-                         void* blocked_out, int n, void* err, int while_while, int threads,
-                         int persistent, void* counter, void* stream) {
-  return launch<true>(boxes, links, m, n_internal, tris, group, use_masks, all_definite, o, d,
-                      t_min, t_limit, active, idx, t_out, prim_out, u_out, v_out,
-                      blocked_out, n, err, while_while, threads, persistent, counter,
-                      stream);
+                         const void* t_limit, const void* active, void* t_out,
+                         void* prim_out, void* u_out, void* v_out, void* blocked_out, int n,
+                         void* err, int mode, int capped, void* counter, void* stream) {
+  return launch<true>(boxes, links, m, n_internal, tris, group, use_masks, all_definite, o,
+                      d, t_min, t_limit, active, t_out, prim_out, u_out, v_out, blocked_out,
+                      n, err, mode, capped, counter, stream);
 }
 
 }  // extern "C"

@@ -330,21 +330,21 @@ def traverse_plain(node_rows, tri_rows, o, d, t_min, t_limit, active, *,
 # ---- the CUDA kernel: build, bind, launch ----------------------------------
 
 _LIB = "rope_traverse"
-_ARGTYPES = {name: cudalib.argtypes("ppiipiiipppppppppppipiiipp")
+_ARGTYPES = {name: cudalib.argtypes("ppiipiiippppppppppipiipp")
              for name in ("tpurt_rope_closest", "tpurt_rope_occlusion")}
 
-# launch shape of K3/K4 (while_while: node steps in an inner loop, the leaf
-# tests outside it; threads per block; persistent blocks fed by an atomic
-# ray counter; octant_sort: rays grouped by octant through an index array)
-VARIANT = {"while_while": True, "threads": 128, "persistent": False, "octant_sort": False}
+# launch of K3/K4: mode 0 a grid over the rays, 1 resident blocks whose
+# warps take 32 rays at a time from an atomic counter, 2 resident blocks
+# whose lanes each take a new ray when their walk is over; capped: at most
+# 40 registers (12 blocks of 128 threads per SM)
+VARIANT = {"mode": 0, "capped": False}
 VARIANTS = {
-    "ww128": dict(VARIANT),
-    "ifif128": dict(VARIANT, while_while=False),
-    "ww64": dict(VARIANT, threads=64),
-    "ww256": dict(VARIANT, threads=256),
-    "ifif256": dict(VARIANT, while_while=False, threads=256),
-    "ww128_persistent": dict(VARIANT, persistent=True),
-    "ww128_octsort": dict(VARIANT, octant_sort=True),
+    "grid": dict(mode=0, capped=False),
+    "batches": dict(mode=1, capped=False),
+    "refill": dict(mode=2, capped=False),
+    "grid_capped": dict(mode=0, capped=True),
+    "batches_capped": dict(mode=1, capped=True),
+    "refill_capped": dict(mode=2, capped=True),
 }
 
 
@@ -396,19 +396,14 @@ def traverse_cuda(kbvh: KernelBVH, o, d, t_min, t_limit, active, *, occlusion: b
         return out
     lib = cudalib.load(_LIB, _ARGTYPES)
     fn = lib.tpurt_rope_occlusion if occlusion else lib.tpurt_rope_closest
-    idx = None
-    if VARIANT["octant_sort"]:
-        octant = (d[:, 0] < 0).to(torch.uint8) * 4 + (d[:, 1] < 0) * 2 + (d[:, 2] < 0)
-        idx = torch.sort(octant.to(torch.uint8))[1].to(torch.int32)
     counter = torch.empty(1, dtype=torch.int32, device=dev)
     rc = fn(card.boxes.data_ptr(), card.links.data_ptr(), kbvh.node_rows.shape[1],
             kbvh.n_internal, card.tris.data_ptr(), kbvh.group_size,
             int(kbvh.use_masks), int(all_definite),
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
-            active.data_ptr(), None if idx is None else idx.data_ptr(),
-            *(x.data_ptr() for x in out), n,
-            cudalib.error_word(dev).data_ptr(), int(VARIANT["while_while"]),
-            int(VARIANT["threads"]), int(VARIANT["persistent"]), counter.data_ptr(),
+            active.data_ptr(), *(x.data_ptr() for x in out), n,
+            cudalib.error_word(dev).data_ptr(), int(VARIANT["mode"]),
+            int(VARIANT["capped"]), counter.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     cudalib.launch_check(rc, "rope traversal")
     LAUNCHES["rope_occlusion" if occlusion else "rope_closest"] += 1
