@@ -85,55 +85,40 @@ struct Args {
   float* blocked_out;
   int n;
   int* err;
-  int* counter;  // persistent launches: the next ray to hand out
+  int* next_ray;  // the first ray no warp has taken yet
 };
 
-// One ray's walk: start() loads ray j, advance() runs node steps until a
-// leaf whose box is hit and then that leaf's G triangle tests (one round
-// of the while-while loop), finish() writes the results. The walk is over
-// when node == m.
+// The whole walk of ray j, results written at j.
 template <bool Occlusion, bool Masks>
-struct RopeRay {
-  float ox, oy, oz, dx, dy, dz, inv_x, inv_y, inv_z, t_min;
-  const int2* links;
-  float t_best, uu, vv;
-  int prim, node, steps, j;
-  bool blocked;
+__device__ __forceinline__ void walk_ray(const Args& a, int j) {
+  const float ox = a.o[3 * j + 0], oy = a.o[3 * j + 1], oz = a.o[3 * j + 2];
+  const float dx = a.d[3 * j + 0], dy = a.d[3 * j + 1], dz = a.d[3 * j + 2];
+  const float t_min = a.t_min[j];
+  const float tiny = 1e-20f;
+  // sign / max(|d|, 1e-20), as pallas_traverse.py:121-123
+  const float inv_x = (dx >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dx), tiny);
+  const float inv_y = (dy >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dy), tiny);
+  const float inv_z = (dz >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dz), tiny);
+  const int oct = (dx < 0.0f ? 4 : 0) + (dy < 0.0f ? 2 : 0) + (dz < 0.0f ? 1 : 0);
+  const int2* links = a.links + (size_t)oct * a.m;
 
-  __device__ __forceinline__ void start(const Args& a, int ray) {
-    j = ray;
-    ox = a.o[3 * j + 0];
-    oy = a.o[3 * j + 1];
-    oz = a.o[3 * j + 2];
-    dx = a.d[3 * j + 0];
-    dy = a.d[3 * j + 1];
-    dz = a.d[3 * j + 2];
-    t_min = a.t_min[j];
-    const float tiny = 1e-20f;
-    // sign / max(|d|, 1e-20), as pallas_traverse.py:121-123
-    inv_x = (dx >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dx), tiny);
-    inv_y = (dy >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dy), tiny);
-    inv_z = (dz >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dz), tiny);
-    const int oct = (dx < 0.0f ? 4 : 0) + (dy < 0.0f ? 2 : 0) + (dz < 0.0f ? 1 : 0);
-    links = a.links + (size_t)oct * a.m;
-    t_best = a.t_limit[j];
-    prim = -1;
-    uu = 0.0f;
-    vv = 0.0f;
-    blocked = false;
-    steps = 0;
-    node = a.active[j] ? 0 : a.m;
-  }
+  float t_best = a.t_limit[j];
+  int prim = -1;
+  float uu = 0.0f, vv = 0.0f;
+  bool blocked = false;
 
-  __device__ __forceinline__ void advance(const Args& a) {
-    const int end = a.m;
+  const int end = a.m;
+  const int cap = 4 * a.m;
+  int steps = 0;
+  int node = a.active[j] ? 0 : end;
+  while (node != end) {
+    // ---- node steps, until a leaf whose box is hit or the end ----
     int leaf = -1, next = end;
-    // node steps until a leaf whose box is hit, or the end
     while (node != end) {
-      if (steps++ >= 4 * a.m) {  // a broken rope: at most 4*M steps
+      if (steps++ >= cap) {
         atomicOr(a.err, kErrStepCap);
         node = end;
-        return;
+        break;
       }
       const float4 lo = __ldg(a.boxes + 2 * node);
       const float4 hi = __ldg(a.boxes + 2 * node + 1);
@@ -156,9 +141,9 @@ struct RopeRay {
       }
       node = hit ? ln.x : ln.y;
     }
-    if (leaf < 0) return;
+    if (leaf < 0) break;
 
-    // the leaf's triangles, before the next node step
+    // ---- the leaf's G triangles, before the next node step ----
     const float4* tri = a.tris + (size_t)leaf * a.group * kWordsPerTri;
     for (int k = 0; k < a.group; ++k) {
       const float4 w0 = __ldg(tri + kWordsPerTri * k);
@@ -197,99 +182,57 @@ struct RopeRay {
       uu = u;
       vv = w;
     }
-    node = (Occlusion && blocked) ? end : next;
+    node = next;
+    if (Occlusion && blocked) break;
   }
-
-  __device__ __forceinline__ void finish(const Args& a) const {
-    a.t_out[j] = t_best;
-    a.prim_out[j] = prim;
-    a.u_out[j] = uu;
-    a.v_out[j] = vv;
-    a.blocked_out[j] = blocked ? 1.0f : 0.0f;
-  }
-};
-
-// mode 0: one thread per ray over a grid that covers the rays
-template <bool Occlusion, bool Masks, int MinBlocks>
-__global__ void __launch_bounds__(kThreads, MinBlocks)
-rope_walk(const Args a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  RopeRay<Occlusion, Masks> r;
-  r.start(a, i);
-  while (r.node != a.m) r.advance(a);
-  r.finish(a);
+  a.t_out[j] = t_best;
+  a.prim_out[j] = prim;
+  a.u_out[j] = uu;
+  a.v_out[j] = vv;
+  a.blocked_out[j] = blocked ? 1.0f : 0.0f;
 }
 
-// mode 1: resident blocks; each warp takes 32 rays at a time from an
-// atomic counter until none is left
-template <bool Occlusion, bool Masks, int MinBlocks>
-__global__ void __launch_bounds__(kThreads, MinBlocks)
-rope_walk_batches(const Args a) {
+// one thread per ray over a grid that covers the rays
+template <bool Occlusion, bool Masks>
+__global__ void __launch_bounds__(kThreads)
+rope_walk_grid(const Args a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < a.n) walk_ray<Occlusion, Masks>(a, i);
+}
+
+// Resident blocks only; each warp takes the next 32 rays from an atomic
+// counter until none is left.
+template <bool Occlusion, bool Masks>
+__global__ void __launch_bounds__(kThreads)
+rope_walk(const Args a) {
   const int lane = threadIdx.x & 31;
   while (true) {
     int base = 0;
-    if (lane == 0) base = atomicAdd(a.counter, 32);
+    if (lane == 0) base = atomicAdd(a.next_ray, 32);
     base = __shfl_sync(0xffffffffu, base, 0);
     if (base >= a.n) return;
-    const int i = base + lane;
-    if (i < a.n) {
-      RopeRay<Occlusion, Masks> r;
-      r.start(a, i);
-      while (r.node != a.m) r.advance(a);
-      r.finish(a);
-    }
+    if (base + lane < a.n) walk_ray<Occlusion, Masks>(a, base + lane);
     __syncwarp();
   }
 }
 
-// mode 2: resident blocks; a lane whose walk is over writes its ray and
-// takes the next one from the counter (one atomic per warp for the lanes
-// that ask together), so no lane idles while its warp mates walk
-template <bool Occlusion, bool Masks, int MinBlocks>
-__global__ void __launch_bounds__(kThreads, MinBlocks)
-rope_walk_refill(const Args a) {
-  const unsigned lane = threadIdx.x & 31;
-  RopeRay<Occlusion, Masks> r;
-  r.node = a.m;
-  bool have = false;
-  while (true) {
-    if (r.node == a.m) {
-      if (have) r.finish(a);
-      const unsigned need = __activemask();
-      const int leader = __ffs(need) - 1;
-      int base = 0;
-      if ((int)lane == leader) base = atomicAdd(a.counter, __popc(need));
-      base = __shfl_sync(need, base, leader);
-      const int i = base + __popc(need & ((1u << lane) - 1u));
-      if (i >= a.n) return;
-      r.start(a, i);
-      have = true;
-      continue;  // an inactive ray is over at once
-    }
-    r.advance(a);
-  }
-}
-
-template <bool Occlusion, bool Masks, int MinBlocks>
-int launch_walk(const Args& a, int mode, cudaStream_t stream) {
-  if (mode == 0) {
-    const int blocks = (a.n + kThreads - 1) / kThreads;
-    rope_walk<Occlusion, Masks, MinBlocks><<<blocks, kThreads, 0, stream>>>(a);
+template <bool Occlusion, bool Masks>
+int launch_walk(const Args& a, int grid, cudaStream_t stream) {
+  const int want = (a.n + kThreads - 1) / kThreads;
+  if (grid) {
+    rope_walk_grid<Occlusion, Masks><<<want, kThreads, 0, stream>>>(a);
     return (int)cudaGetLastError();
   }
-  auto kernel = mode == 1 ? rope_walk_batches<Occlusion, Masks, MinBlocks>
-                          : rope_walk_refill<Occlusion, Masks, MinBlocks>;
-  int per_sm = 0, sms = 0, dev = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  cudaMemsetAsync(a.counter, 0, sizeof(int), stream);
-  const int want = (a.n + kThreads - 1) / kThreads;
-  int blocks = per_sm * sms;
-  if (blocks > want) blocks = want;
-  if (blocks < 1) blocks = 1;
-  kernel<<<blocks, kThreads, 0, stream>>>(a);
+  auto kernel = rope_walk<Occlusion, Masks>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  if (rc == cudaSuccess) rc = cudaMemsetAsync(a.next_ray, 0, sizeof(int), stream);
+  if (rc != cudaSuccess) return (int)rc;
+  const int blocks = per_sm * sms < want ? per_sm * sms : want;
+  kernel<<<blocks > 0 ? blocks : 1, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -298,21 +241,16 @@ int launch(const void* boxes, const void* links, int m, int n_internal, const vo
            int group, int use_masks, int all_definite, const void* o, const void* d,
            const void* t_min, const void* t_limit, const void* active, void* t_out,
            void* prim_out, void* u_out, void* v_out, void* blocked_out, int n, void* err,
-           int mode, int capped, void* counter, void* stream) {
+           void* next_ray, int grid, void* stream) {
   if (n <= 0) return 0;
-  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
   const Args a{(const float4*)boxes, (const int2*)links, m, n_internal, (const float4*)tris,
                group, all_definite, (const float*)o, (const float*)d, (const float*)t_min,
                (const float*)t_limit, (const uint8_t*)active, (float*)t_out, (int*)prim_out,
                (float*)u_out, (float*)v_out, (float*)blocked_out, n, (int*)err,
-               (int*)counter};
+               (int*)next_ray};
   cudaStream_t s = (cudaStream_t)stream;
-  if (use_masks) {
-    return capped ? launch_walk<Occlusion, true, 12>(a, mode, s)
-                  : launch_walk<Occlusion, true, 1>(a, mode, s);
-  }
-  return capped ? launch_walk<Occlusion, false, 12>(a, mode, s)
-                : launch_walk<Occlusion, false, 1>(a, mode, s);
+  return use_masks ? launch_walk<Occlusion, true>(a, grid, s)
+                   : launch_walk<Occlusion, false>(a, grid, s);
 }
 
 }  // namespace
@@ -323,11 +261,11 @@ int tpurt_rope_closest(const void* boxes, const void* links, int m, int n_intern
                        const void* tris, int group, int use_masks, int all_definite,
                        const void* o, const void* d, const void* t_min, const void* t_limit,
                        const void* active, void* t_out, void* prim_out, void* u_out,
-                       void* v_out, void* blocked_out, int n, void* err, int mode, int capped,
-                       void* counter, void* stream) {
+                       void* v_out, void* blocked_out, int n, void* err, void* next_ray,
+                       int grid, void* stream) {
   return launch<false>(boxes, links, m, n_internal, tris, group, use_masks, all_definite, o,
                        d, t_min, t_limit, active, t_out, prim_out, u_out, v_out, blocked_out,
-                       n, err, mode, capped, counter, stream);
+                       n, err, next_ray, grid, stream);
 }
 
 int tpurt_rope_occlusion(const void* boxes, const void* links, int m, int n_internal,
@@ -335,10 +273,10 @@ int tpurt_rope_occlusion(const void* boxes, const void* links, int m, int n_inte
                          const void* o, const void* d, const void* t_min,
                          const void* t_limit, const void* active, void* t_out,
                          void* prim_out, void* u_out, void* v_out, void* blocked_out, int n,
-                         void* err, int mode, int capped, void* counter, void* stream) {
-  return launch<true>(boxes, links, m, n_internal, tris, group, use_masks, all_definite, o,
-                      d, t_min, t_limit, active, t_out, prim_out, u_out, v_out, blocked_out,
-                      n, err, mode, capped, counter, stream);
+                         void* err, void* next_ray, int grid, void* stream) {
+  return launch<true>(boxes, links, m, n_internal, tris, group, use_masks, all_definite, o, d,
+                      t_min, t_limit, active, t_out, prim_out, u_out, v_out, blocked_out, n,
+                      err, next_ray, grid, stream);
 }
 
 }  // extern "C"

@@ -330,22 +330,13 @@ def traverse_plain(node_rows, tri_rows, o, d, t_min, t_limit, active, *,
 # ---- the CUDA kernel: build, bind, launch ----------------------------------
 
 _LIB = "rope_traverse"
-_ARGTYPES = {name: cudalib.argtypes("ppiipiiippppppppppipiipp")
+_ARGTYPES = {name: cudalib.argtypes("ppiipiiippppppppppippip")
              for name in ("tpurt_rope_closest", "tpurt_rope_occlusion")}
 
-# launch of K3/K4: mode 0 a grid over the rays, 1 resident blocks whose
-# warps take 32 rays at a time from an atomic counter, 2 resident blocks
-# whose lanes each take a new ray when their walk is over; capped: at most
-# 40 registers (12 blocks of 128 threads per SM)
-VARIANT = {"mode": 0, "capped": False}
-VARIANTS = {
-    "grid": dict(mode=0, capped=False),
-    "batches": dict(mode=1, capped=False),
-    "refill": dict(mode=2, capped=False),
-    "grid_capped": dict(mode=0, capped=True),
-    "batches_capped": dict(mode=1, capped=True),
-    "refill_capped": dict(mode=2, capped=True),
-}
+# launch of K3/K4: grid, one thread per ray over a grid of all the rays;
+# else resident blocks whose warps take 32 rays at a time from a counter
+VARIANT = {"grid": False}
+VARIANTS = {"grid": dict(grid=True), "batches": dict(grid=False)}
 
 
 def _check_card(kbvh: KernelBVH, dev) -> RopeCardTables:
@@ -396,14 +387,13 @@ def traverse_cuda(kbvh: KernelBVH, o, d, t_min, t_limit, active, *, occlusion: b
         return out
     lib = cudalib.load(_LIB, _ARGTYPES)
     fn = lib.tpurt_rope_occlusion if occlusion else lib.tpurt_rope_closest
-    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    next_ray = torch.empty(1, dtype=torch.int32, device=dev)
     rc = fn(card.boxes.data_ptr(), card.links.data_ptr(), kbvh.node_rows.shape[1],
             kbvh.n_internal, card.tris.data_ptr(), kbvh.group_size,
             int(kbvh.use_masks), int(all_definite),
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
             active.data_ptr(), *(x.data_ptr() for x in out), n,
-            cudalib.error_word(dev).data_ptr(), int(VARIANT["mode"]),
-            int(VARIANT["capped"]), counter.data_ptr(),
+            cudalib.error_word(dev).data_ptr(), next_ray.data_ptr(), int(VARIANT["grid"]),
             torch.cuda.current_stream(dev).cuda_stream)
     cudalib.launch_check(rc, "rope traversal")
     LAUNCHES["rope_occlusion" if occlusion else "rope_closest"] += 1
