@@ -43,7 +43,17 @@
 //     G = 8, against 1.7 MB of distinct boxes): one box per node, so a warp
 //     of rays in different octants shares the box lines in L1/L2.
 //  3. The if-if loop, where a thread at a leaf ran G triangle tests while
-//     its warp mates on internal nodes waited: VARIANT (see the launch).
+//     its warp mates on internal nodes waited: the walk is while-while
+//     (Aila & Laine, HPG 2009), node steps in an inner loop until a leaf
+//     whose box is hit, then that leaf. Each thread keeps its own order;
+//     only the way the warp converges changes.
+// One thread per ray, 128 threads per block, over a grid of all the rays.
+// Other launches measured no faster on the render's whole-frame shapes and
+// were dropped (PERF.md): 64 or 256 threads, resident blocks fed by an
+// atomic ray counter (per warp or per lane), a 40-register cap, rays
+// grouped by octant. The walk stays one function: the same walk written
+// as a per-ray state object advanced from an outer loop compiled to a
+// kernel 2x slower on bounce rays.
 //
 // Bound. A node step is one box test (~25 f32 operations) and a leaf
 // whose box is hit G triangle tests (~60 each): bound by operations
@@ -85,7 +95,6 @@ struct Args {
   float* blocked_out;
   int n;
   int* err;
-  int* next_ray;  // the first ray no warp has taken yet
 };
 
 // The whole walk of ray j, results written at j.
@@ -192,48 +201,11 @@ __device__ __forceinline__ void walk_ray(const Args& a, int j) {
   a.blocked_out[j] = blocked ? 1.0f : 0.0f;
 }
 
-// one thread per ray over a grid that covers the rays
-template <bool Occlusion, bool Masks>
-__global__ void __launch_bounds__(kThreads)
-rope_walk_grid(const Args a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.n) walk_ray<Occlusion, Masks>(a, i);
-}
-
-// Resident blocks only; each warp takes the next 32 rays from an atomic
-// counter until none is left.
 template <bool Occlusion, bool Masks>
 __global__ void __launch_bounds__(kThreads)
 rope_walk(const Args a) {
-  const int lane = threadIdx.x & 31;
-  while (true) {
-    int base = 0;
-    if (lane == 0) base = atomicAdd(a.next_ray, 32);
-    base = __shfl_sync(0xffffffffu, base, 0);
-    if (base >= a.n) return;
-    if (base + lane < a.n) walk_ray<Occlusion, Masks>(a, base + lane);
-    __syncwarp();
-  }
-}
-
-template <bool Occlusion, bool Masks>
-int launch_walk(const Args& a, int grid, cudaStream_t stream) {
-  const int want = (a.n + kThreads - 1) / kThreads;
-  if (grid) {
-    rope_walk_grid<Occlusion, Masks><<<want, kThreads, 0, stream>>>(a);
-    return (int)cudaGetLastError();
-  }
-  auto kernel = rope_walk<Occlusion, Masks>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  if (rc == cudaSuccess) rc = cudaMemsetAsync(a.next_ray, 0, sizeof(int), stream);
-  if (rc != cudaSuccess) return (int)rc;
-  const int blocks = per_sm * sms < want ? per_sm * sms : want;
-  kernel<<<blocks > 0 ? blocks : 1, kThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < a.n) walk_ray<Occlusion, Masks>(a, i);
 }
 
 template <bool Occlusion>
@@ -241,16 +213,19 @@ int launch(const void* boxes, const void* links, int m, int n_internal, const vo
            int group, int use_masks, int all_definite, const void* o, const void* d,
            const void* t_min, const void* t_limit, const void* active, void* t_out,
            void* prim_out, void* u_out, void* v_out, void* blocked_out, int n, void* err,
-           void* next_ray, int grid, void* stream) {
+           void* stream) {
   if (n <= 0) return 0;
   const Args a{(const float4*)boxes, (const int2*)links, m, n_internal, (const float4*)tris,
                group, all_definite, (const float*)o, (const float*)d, (const float*)t_min,
                (const float*)t_limit, (const uint8_t*)active, (float*)t_out, (int*)prim_out,
-               (float*)u_out, (float*)v_out, (float*)blocked_out, n, (int*)err,
-               (int*)next_ray};
-  cudaStream_t s = (cudaStream_t)stream;
-  return use_masks ? launch_walk<Occlusion, true>(a, grid, s)
-                   : launch_walk<Occlusion, false>(a, grid, s);
+               (float*)u_out, (float*)v_out, (float*)blocked_out, n, (int*)err};
+  const int blocks = (n + kThreads - 1) / kThreads;
+  if (use_masks) {
+    rope_walk<Occlusion, true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
+  } else {
+    rope_walk<Occlusion, false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -261,11 +236,10 @@ int tpurt_rope_closest(const void* boxes, const void* links, int m, int n_intern
                        const void* tris, int group, int use_masks, int all_definite,
                        const void* o, const void* d, const void* t_min, const void* t_limit,
                        const void* active, void* t_out, void* prim_out, void* u_out,
-                       void* v_out, void* blocked_out, int n, void* err, void* next_ray,
-                       int grid, void* stream) {
+                       void* v_out, void* blocked_out, int n, void* err, void* stream) {
   return launch<false>(boxes, links, m, n_internal, tris, group, use_masks, all_definite, o,
                        d, t_min, t_limit, active, t_out, prim_out, u_out, v_out, blocked_out,
-                       n, err, next_ray, grid, stream);
+                       n, err, stream);
 }
 
 int tpurt_rope_occlusion(const void* boxes, const void* links, int m, int n_internal,
@@ -273,10 +247,10 @@ int tpurt_rope_occlusion(const void* boxes, const void* links, int m, int n_inte
                          const void* o, const void* d, const void* t_min,
                          const void* t_limit, const void* active, void* t_out,
                          void* prim_out, void* u_out, void* v_out, void* blocked_out, int n,
-                         void* err, void* next_ray, int grid, void* stream) {
+                         void* err, void* stream) {
   return launch<true>(boxes, links, m, n_internal, tris, group, use_masks, all_definite, o, d,
                       t_min, t_limit, active, t_out, prim_out, u_out, v_out, blocked_out, n,
-                      err, next_ray, grid, stream);
+                      err, stream);
 }
 
 }  // extern "C"

@@ -108,9 +108,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rope", action="store_true",
                     help="also time K3/K4 over the rope tables of a G=8 "
                          "triangle BVH of the scene")
-    ap.add_argument("--rope-variants", action="store_true",
-                    help="with --rope, time every launch variant of K3/K4 "
-                         "(rope.VARIANTS) in turns")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--scene", default=None,
                     help="glTF scene to load instead of writing the bench's "
@@ -235,12 +232,9 @@ def rope_batches(b: dict, t_max: float) -> list:
             ("rope_shadow_occlusion", *b["shadow_unsorted"], True)]
 
 
-def rope_timings(r: Renderer, b: dict, reps: int, variants: bool = False) -> dict:
+def rope_timings(r: Renderer, b: dict, reps: int) -> dict:
     """K3/K4 over the rope tables of a G = ROPE_GROUP triangle BVH of the
-    scene on the rope batches: ms, ns per ray and the bound of each. With
-    `variants`, every entry of rope.VARIANTS is timed on every batch, in
-    turns (the list forward, then backward), and its results are held
-    bit-equal to the first entry's."""
+    scene on the rope batches: ms, ns per ray and the bound of each."""
     dev = r.device
     tri = r.device_scene.tri_pos.cpu().numpy()
     rk = rope.make_kernel_bvh(build_triangle_bvh(tri, group_size=ROPE_GROUP), tri, device=dev)
@@ -250,49 +244,24 @@ def rope_timings(r: Renderer, b: dict, reps: int, variants: bool = False) -> dic
         t_min = torch.zeros(n, dtype=torch.float32, device=dev)
         active = torch.ones(n, dtype=torch.bool, device=dev)
         kw = dict(occlusion=occlusion, all_definite=True)
-
-        def kern():
-            if dev.type == "cuda":
-                return rope.traverse_cuda(rk, o, d, t_min, t_limit, active, **kw)
-            return rope.traverse_plain(rk.node_rows, rk.tri_rows, o, d, t_min, t_limit,
-                                       active, n_internal=rk.n_internal,
-                                       group=rk.group_size, **kw)
-
         stats = {}
         rope.traverse_plain(rk.node_rows, rk.tri_rows, o, d, t_min, t_limit, active,
                             n_internal=rk.n_internal, group=rk.group_size, stats=stats, **kw)
+        if dev.type == "cuda":
+            ms = median_ms(lambda: rope.traverse_cuda(rk, o, d, t_min, t_limit, active, **kw),
+                           reps, dev)
+        else:
+            ms = median_ms(lambda: rope.traverse_plain(
+                rk.node_rows, rk.tri_rows, o, d, t_min, t_limit, active,
+                n_internal=rk.n_internal, group=rk.group_size, **kw), reps, dev)
         bound_ms, bound_by, _, _ = rope_bound(stats, n, rk.tri_rows.shape[1], rk.group_size)
         out[f"{name}_rays"] = n
+        out[f"{name}_ms"] = ms
+        out[f"{name}_ns_per_ray"] = ms * 1e6 / n
         out[f"{name}_bound_ms"] = bound_ms
         out[f"{name}_bound_by"] = bound_by
         out[f"{name}_steps_per_ray"] = float(stats["node_visits"].float().mean())
         out[f"{name}_leaf_tests_per_ray"] = float(stats["leaf_visits"].float().mean())
-        if not variants:
-            ms = median_ms(kern, reps, dev)
-            out[f"{name}_ms"] = ms
-            out[f"{name}_ns_per_ray"] = ms * 1e6 / n
-            continue
-        saved = dict(rope.VARIANT)
-        try:
-            ref = None
-            times = {v: [] for v in rope.VARIANTS}
-            for order in (list(rope.VARIANTS), list(rope.VARIANTS)[::-1]):
-                for v in order:
-                    rope.VARIANT.update(rope.VARIANTS[v])
-                    times[v].append(median_ms(kern, reps, dev))
-                    res = kern()
-                    if ref is None:
-                        ref = res
-                    bad = sum(int((a.view(torch.int32) != c.view(torch.int32)).sum())
-                              for a, c in zip(res, ref))
-                    if bad:
-                        raise RuntimeError(f"{name}: variant {v} differs from "
-                                           f"{list(rope.VARIANTS)[0]} in {bad} values")
-        finally:
-            rope.VARIANT.clear()
-            rope.VARIANT.update(saved)
-        for v, ts in times.items():
-            out[f"{name}_{v}_ms"] = ts
     return out
 
 
@@ -392,7 +361,7 @@ def main(argv=None) -> dict:
         results[f"{name}_bound_ms"] = bound_ms
         results[f"{name}_bound_by"] = bound_by
     if args.rope:
-        results.update(rope_timings(r, b, args.reps, args.rope_variants))
+        results.update(rope_timings(r, b, args.reps))
     if args.stepcost:
         table = stepcost_table(kbvh, *b["bounce"], args.stepcost, args.reps, t_max)
         for name, _ in wide.STEPCOST_CONFIGS:

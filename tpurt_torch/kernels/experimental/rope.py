@@ -330,13 +330,8 @@ def traverse_plain(node_rows, tri_rows, o, d, t_min, t_limit, active, *,
 # ---- the CUDA kernel: build, bind, launch ----------------------------------
 
 _LIB = "rope_traverse"
-_ARGTYPES = {name: cudalib.argtypes("ppiipiiippppppppppippip")
+_ARGTYPES = {name: cudalib.argtypes("ppiipiiippppppppppipp")
              for name in ("tpurt_rope_closest", "tpurt_rope_occlusion")}
-
-# launch of K3/K4: grid, one thread per ray over a grid of all the rays;
-# else resident blocks whose warps take 32 rays at a time from a counter
-VARIANT = {"grid": False}
-VARIANTS = {"grid": dict(grid=True), "batches": dict(grid=False)}
 
 
 def _check_card(kbvh: KernelBVH, dev) -> RopeCardTables:
@@ -387,14 +382,12 @@ def traverse_cuda(kbvh: KernelBVH, o, d, t_min, t_limit, active, *, occlusion: b
         return out
     lib = cudalib.load(_LIB, _ARGTYPES)
     fn = lib.tpurt_rope_occlusion if occlusion else lib.tpurt_rope_closest
-    next_ray = torch.empty(1, dtype=torch.int32, device=dev)
     rc = fn(card.boxes.data_ptr(), card.links.data_ptr(), kbvh.node_rows.shape[1],
             kbvh.n_internal, card.tris.data_ptr(), kbvh.group_size,
             int(kbvh.use_masks), int(all_definite),
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
             active.data_ptr(), *(x.data_ptr() for x in out), n,
-            cudalib.error_word(dev).data_ptr(), next_ray.data_ptr(), int(VARIANT["grid"]),
-            torch.cuda.current_stream(dev).cuda_stream)
+            cudalib.error_word(dev).data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cudalib.launch_check(rc, "rope traversal")
     LAUNCHES["rope_occlusion" if occlusion else "rope_closest"] += 1
     return out
