@@ -35,7 +35,7 @@ rope render traces shadow rays as closest hits) and K4 on the shadow
 rays bounded by the light's distance, each beside its bound
 (`rope_bound`). With `--rows 1080 --row0 0` every batch is a whole frame
 (2,073,600 rays). The rope timings call only `rope.make_kernel_bvh`,
-`rope.traverse_cuda` and `rope.traverse_plain`, so this file can time an
+`rope._traverse` and `rope.traverse_plain`, so this file can time an
 older tree's rope kernels too (run it with that tree's package first on
 the path).
 
@@ -247,13 +247,8 @@ def rope_timings(r: Renderer, b: dict, reps: int) -> dict:
         stats = {}
         rope.traverse_plain(rk.node_rows, rk.tri_rows, o, d, t_min, t_limit, active,
                             n_internal=rk.n_internal, group=rk.group_size, stats=stats, **kw)
-        if dev.type == "cuda":
-            ms = median_ms(lambda: rope.traverse_cuda(rk, o, d, t_min, t_limit, active, **kw),
-                           reps, dev)
-        else:
-            ms = median_ms(lambda: rope.traverse_plain(
-                rk.node_rows, rk.tri_rows, o, d, t_min, t_limit, active,
-                n_internal=rk.n_internal, group=rk.group_size, **kw), reps, dev)
+        ms = median_ms(lambda: rope._traverse(rk, o, d, t_min, t_limit, active, **kw),
+                       reps, dev)
         bound_ms, bound_by, _, _ = rope_bound(stats, n, rk.tri_rows.shape[1], rk.group_size)
         out[f"{name}_rays"] = n
         out[f"{name}_ms"] = ms
