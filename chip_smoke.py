@@ -9,7 +9,7 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
   build    nvcc the four CUDA sources (wide_traverse.cu, rope_traverse.cu,
            wide_octet.cu, wide_stepcost.cu) and g++ the native host core,
            all at once; ptxas's registers, stack frame and spills for each
-           instantiation of K1/K2 and of K3/K4
+           instantiation of K1/K2, K3/K4, K5 and K6
   scene    write the bench's Sponza-like scene (~215k triangles), load it,
            build the renderer at 1920x1080 on the card (its wide tables and
            K1/K2's card tables), time each host step
@@ -69,7 +69,10 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            launch counter zeroed just before; K5 must launch, K1 and K2 must
            not; 0 NaN pixels; the image within ROPE_VS_WIDE_RMSE of the
            `render` phase's; the warm-up's first camera, bounce and shadow
-           waves held against octet_plain
+           waves held against octet_plain, and K5 timed on each in turns with
+           K1/K2 on the same rays (whole-frame waves: ns per ray, the
+           function's bound from traverse_plain's counts and the union
+           walk's from octet_plain's)
   stepcost K6, the step-cost instrument: against stepcost_plain on the bounce
            batch (without cell masks) at the longest K1 walk of the batch,
            in every configuration kernel_bench times, t, prim and acc
@@ -220,6 +223,9 @@ def compare_exact(k, p):
 
 # the templates of K1/K2 and of K3/K4, each <Occlusion, Masks>
 WALKS = {"wide_walk": ("K1", "K2"), "rope_walk": ("K3", "K4")}
+# K6's <DoBox, DoExtract, DoPush, DoLeaf> of each kernel_bench configuration
+STEPCOST_TEMPLATES = {(1, 1, 1, 1): "full", (1, 1, 1, 0): "-leaf", (1, 1, 0, 0): "-push",
+                      (1, 0, 0, 0): "-extract", (0, 0, 0, 0): "-box"}
 
 
 def walk_resources(report, walk):
@@ -230,6 +236,18 @@ def walk_resources(report, walk):
         m = re.search(walk + r"ILb(\d)ELb(\d)E", name)
         if m:
             out[f"{WALKS[walk][int(m.group(1))]} masks={m.group(2)}"] = res
+    return out
+
+
+def template_resources(report, template, label):
+    """ptxas's report of a source keyed by instantiation of `template`:
+    label(args) names the instantiation from its bool and int template
+    arguments."""
+    out = {}
+    for name, res in report.items():
+        m = re.search(template + r"I((?:L[bi]\d+E)+)E", name)
+        if m:
+            out[label(tuple(int(x) for x in re.findall(r"L[bi](\d+)E", m.group(1))))] = res
     return out
 
 
@@ -381,6 +399,16 @@ def main():
         for key, walk in (("k1_k2_ptxas", "wide_walk"), ("k3_k4_ptxas", "rope_walk")):
             if len(info[key]) != 4:
                 raise RuntimeError(f"ptxas reported {sorted(info[key])} for {walk}")
+        info["k5_ptxas"] = template_resources(
+            cudalib.kernel_resources("wide_octet"), "octet_walk",
+            lambda a: f"{('K5 closest', 'K5 occlusion')[a[0]]} masks={a[1]} lane_rays={a[2]}")
+        info["k6_ptxas"] = template_resources(cudalib.kernel_resources("wide_stepcost"),
+                                              "wide_stepcost", STEPCOST_TEMPLATES.get)
+        if len(info["k5_ptxas"]) != 4 * len(wide.OCTET_LANE_RAYS) or \
+                sorted(info["k6_ptxas"]) != sorted(STEPCOST_TEMPLATES.values()):
+            raise RuntimeError(f"ptxas reported {sorted(info['k5_ptxas'])} for K5 and "
+                               f"{sorted(info['k6_ptxas'])} for K6")
+        ptxas = dict(info)
 
     os.makedirs(OUT_DIR, exist_ok=True)
     tmp = tempfile.TemporaryDirectory()
@@ -977,14 +1005,31 @@ def main():
         if nan_px or not rmse_wide <= ROPE_VS_WIDE_RMSE:
             raise RuntimeError(f"octet image: {nan_px} NaN pixels, RMSE {rmse_wide} against "
                                f"the wide render (bound {ROPE_VS_WIDE_RMSE})")
+        # each captured wave against octet_plain, then K5 and K1/K2 timed on
+        # it in turns: the main path's own shapes (whole-frame waves)
         t0 = time.perf_counter()
         main_cases = {}
         for name, (args, kw, out_k) in captured.items():
-            out_p = wide.octet_plain(kb.node_rows, kb.tri_rows, *args, group=kb.group_size,
-                                     arity=kb.arity, **kw)
-            main_cases[name] = compare_exact(out_k, out_p)
+            stats, k1_stats = {}, {}
+            p_ms, out_p = cuda_ms(lambda args=args, kw=kw, stats=stats: wide.octet_plain(
+                kb.node_rows, kb.tri_rows, *args, group=kb.group_size, arity=kb.arity,
+                stats=stats, **kw))
+            row = compare_exact(out_k, out_p)
             del out_p
+            k1_kw = {k: v for k, v in kw.items() if k != "walks"}
+            wide.traverse_plain(kb.node_rows, kb.tri_rows, *args, group=kb.group_size,
+                                arity=kb.arity, stats=k1_stats, **k1_kw)
+            ms, k1_ms = timed_pair(lambda args=args, kw=kw: wide.octet_cuda(kb, *args, **kw),
+                                   lambda args=args, kw=k1_kw: wide.traverse_cuda(kb, *args, **kw))
+            n = int(args[0].shape[0])
+            b_ms, b_by, _, _ = bound(k1_stats, n, kb.tri_rows.shape[1], kb.group_size)
+            u_ms, u_by, _, _ = bound(stats, n, kb.tri_rows.shape[1], kb.group_size)
+            main_cases[name] = dict(row, ms=ms, ns_per_ray=ms * 1e6 / n, k1_ms=k1_ms,
+                                    k1_ns_per_ray=k1_ms * 1e6 / n, plain_ms=p_ms,
+                                    bound_ms=b_ms, bound_by=b_by, union_bound_ms=u_ms,
+                                    union_bound_by=u_by)
         del captured
+        cudalib.check_kernel_errors(dev)
         info.update(main_path_cases=main_cases,
                     main_path_check_s=round(time.perf_counter() - t0, 3))
         if sorted(main_cases) != ["bounce_wave", "camera_wave", "shadow_wave"]:
@@ -1014,7 +1059,11 @@ def main():
             "bound_by": "operations" if by_ops >= by_bytes else "bytes",
             "library_ms": None, "rays": N_RAYS * len(sel),
             "k1_k2_ms": sum(x["k1_ms"] for x in sel), "union_bound_ms": union_ms,
-            "main_path_rays_checked": sum(v["rays"] for v in main_cases.values())})
+            "main_path_rays_checked": sum(v["rays"] for v in main_cases.values()),
+            "main_path_waves": {m: {k: v[k] for k in (
+                "rays", "ms", "ns_per_ray", "k1_ms", "k1_ns_per_ray", "bound_ms", "bound_by",
+                "union_bound_ms", "plain_ms")} for m, v in main_cases.items()},
+            "ptxas": ptxas["k5_ptxas"]})
 
     with Phase("stepcost") as info:
         _, _, o, d, _, _ = by_name["bounce"]
@@ -1044,6 +1093,7 @@ def main():
                               "mismatch": int(((t6.view(torch.int32) != t1.view(torch.int32))
                                                | (p6 != p1)).sum()),
                               "max_abs_err": 0.0}
+        cudalib.check_kernel_errors(dev)
         info.update(steps=steps, cases=step_results, full_vs_k1=full_vs_k1)
         bad = sum(v["mismatch"] for v in step_results.values()) + full_vs_k1["mismatch"]
         if bad:
@@ -1112,7 +1162,8 @@ def main():
             "ms": table["stepcost_full_ms"], "plain_ms": bench_checks["full"]["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "rays": n_bench,
             "steps": BENCH_STEPS, "config": "full",
-            "main_path_rays_checked": sum(v["rays"] for v in bench_checks.values())})
+            "main_path_rays_checked": sum(v["rays"] for v in bench_checks.values()),
+            "ptxas": ptxas["k6_ptxas"]})
 
     with Phase("golden") as info:
         box = write_box_scene(os.path.join(tmp.name, "box.gltf"))

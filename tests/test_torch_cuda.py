@@ -445,3 +445,125 @@ def test_box_golden_through_octet(dev):
     assert after["closest"] == before["closest"] and after["occlusion"] == before["occlusion"]
     golden = np.load(os.path.join(GOLDEN_DIR, "box_64x48_8spp.npz"))["accum"]
     assert film.rmse(img, golden) < 1e-5
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K6"])
+def test_octet_and_stepcost_refuse_missing_or_misaligned_card_tables(dev, kernel):
+    """K5 and K6 read only the card tables: a BVH without them, with
+    tables that are not 16-byte aligned or with tables on another device
+    raises before any launch."""
+    kb = _masked_bvh(dev, n_tris=50)
+    o = torch.zeros((4, 3), device=dev)
+    z = torch.zeros(4, device=dev)
+    if kernel == "K5":
+        def call(k):
+            return wide.octet_cuda(k, o, o, z, z, walks=8, occlusion=False, all_definite=False,
+                                   cell_masks=False)
+    else:
+        def call(k):
+            return wide.stepcost_cuda(k, o, o, z, z, steps=4)
+    before = dict(wide.LAUNCHES)
+    with pytest.raises(ValueError, match="no card tables"):
+        call(dataclasses.replace(kb, card=None))
+    flat = torch.zeros(kb.card.leaves.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = flat[1:].view(kb.card.leaves.shape)
+    shifted.copy_(kb.card.leaves)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(dataclasses.replace(kb, card=wide.CardTables(kb.card.nodes, shifted)))
+    on_cpu = wide.CardTables(kb.card.nodes.cpu(), kb.card.leaves.cpu())
+    with pytest.raises(ValueError, match="are on cpu"):
+        call(dataclasses.replace(kb, card=on_cpu))
+    assert wide.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K6"])
+def test_octet_and_stepcost_tampered_depth_bound_set_the_stack_bit(dev, kernel):
+    """A depth bound below the walk's deepest hit-mask stack ends the walk
+    with the wide-stack bit in the card's error word; the true bound does
+    not."""
+    kb = _masked_bvh(dev)
+    assert kb.depth_bound >= 3
+    n = 20000
+    o, d = _rays(n, seed=6)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    t_min = torch.zeros(n, device=dev)
+    t_limit = torch.full((n,), 1e9, device=dev)
+    if kernel == "K5":
+        def call(k):
+            return wide.octet_cuda(k, o, d, t_min, t_limit, walks=8, occlusion=False,
+                                   all_definite=False, cell_masks=False)
+    else:
+        def call(k):
+            return wide.stepcost_cuda(k, o, d, t_min, t_limit, steps=64)
+    cudalib.check_kernel_errors(dev)
+    call(kb)
+    torch.cuda.synchronize(dev)
+    assert int(cudalib.error_word(dev).item()) == 0
+    call(dataclasses.replace(kb, depth_bound=1))
+    torch.cuda.synchronize(dev)
+    assert int(cudalib.error_word(dev).item()) & cudalib.ERR_WIDE_STACK
+    with pytest.raises(RuntimeError, match="wide traversal stack overflow"):
+        cudalib.check_kernel_errors(dev)
+
+
+@pytest.mark.parametrize("mode,cell_masks", [("closest", True), ("occlusion", False)])
+def test_octet_kernel_matches_plain_whole_frame(dev, mode, cell_masks):
+    """K5 at 8 walks on the 2,073,600 camera rays of the bench camera at
+    1920x1080 on the mini Sponza (alpha masks on), and on shadow rays from
+    their hits toward a light: t bits, prim and the flag equal to
+    octet_plain on every ray."""
+    from tpurt_torch.camera import camera_rays_for_rows
+    from tpurt_torch.scene.procedural import write_sponza_like_scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_sponza_like_scene(os.path.join(tmp, "s.gltf"), columns=2, foliage=8)
+        cfg = RenderConfig(width=1920, height=1080)
+        r = Renderer.from_gltf(path, config=cfg, device=dev,
+                               camera=Camera.from_angles([0.0, -4.0, 0.0], 0.7, -0.1))
+    kb = r.bvh
+    assert kb.use_masks
+    o, d, _ = camera_rays_for_rows(r.camera, 0, 1080, 1920, 1080, cfg.tan_half_fov, 0,
+                                   cfg.seed, device=dev)
+    o, d = o.contiguous(), d.contiguous()
+    n = o.shape[0]
+    assert n == 2073600
+    t_min = torch.zeros(n, device=dev)
+    t_limit = torch.full((n,), 1e9, device=dev)
+    if mode == "occlusion":
+        t, prim, _ = wide.traverse_cuda(kb, o, d, t_min, t_limit, occlusion=False,
+                                        all_definite=False, cell_masks=False)
+        hit = prim >= 0
+        org = (o + torch.where(hit, t, t_min)[:, None] * d - 0.01 * d).contiguous()
+        to_l = torch.tensor([0.0, -7.5, 0.0], device=dev)[None, :] - org
+        t_limit = torch.where(hit, torch.linalg.norm(to_l, dim=-1),
+                              torch.full_like(t_min, -3e38)).contiguous()
+        o, d = org, (to_l / torch.linalg.norm(to_l, dim=-1, keepdim=True)).contiguous()
+    kw = dict(occlusion=mode == "occlusion", all_definite=False, cell_masks=cell_masks)
+    out_k = wide.octet_cuda(kb, o, d, t_min, t_limit, walks=8, **kw)
+    cudalib.check_kernel_errors(dev)
+    out_p = wide.octet_plain(kb.node_rows, kb.tri_rows, o, d, t_min, t_limit, walks=8,
+                             group=kb.group_size, arity=kb.arity, **kw)
+    assert int((out_k[2] != 0).sum()) > 0
+    for a, b in zip(out_k, out_p):
+        assert _bits_equal(a, b)
+
+
+@pytest.mark.parametrize("mode,cell_masks", [("closest", False), ("closest", True),
+                                             ("occlusion", False)])
+def test_octet_warp_per_walk_matches_plain(dev, mode, cell_masks):
+    """K5's one-warp-per-walk launch (4 rays per lane, 8 walks) against
+    octet_plain: t, prim and flag bit-equal, with a ragged last walk."""
+    kb = _masked_bvh(dev)
+    n = 70000
+    o, d = _rays(n, seed=n + 8)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    t_min = torch.zeros(n, device=dev)
+    lim = np.where(np.arange(n) % 5 == 0, -3e38, 3.0 if mode == "occlusion" else 1e9)
+    t_limit = torch.from_numpy(lim.astype(np.float32)).to(dev)
+    kw = dict(occlusion=mode == "occlusion", all_definite=False, cell_masks=cell_masks)
+    out_k = wide.octet_cuda(kb, o, d, t_min, t_limit, walks=8, lane_rays=4, **kw)
+    cudalib.check_kernel_errors(dev)
+    out_p = wide.octet_plain(kb.node_rows, kb.tri_rows, o, d, t_min, t_limit, walks=8,
+                             group=kb.group_size, arity=kb.arity, **kw)
+    for a, b in zip(out_k, out_p):
+        assert _bits_equal(a, b)

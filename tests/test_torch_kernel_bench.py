@@ -130,3 +130,29 @@ def test_rope_batches_carry_their_bound(mini_scene):
     stats["node_visits"] = torch.tensor([10 ** 9])
     ms, by, ops, _ = kernel_bench.rope_bound(stats, 2, 80, 8)
     assert by == "operations" and ms == ops / kernel_bench.PEAK_F32 * 1e3
+
+
+def test_octet_batches_carry_the_union_bound(mini_scene):
+    """--octet N sets beside each batch's bound the union walk's own
+    (union_bound): traversal_bound of octet_plain's counts on the same
+    rays, where every ray of a walk tests every entry its walk pops."""
+    res = kernel_bench.main(["--device", "cpu", "--scene", mini_scene, "--rows", "2",
+                             "--row0", "540", "--reps", "1", "--octet", "8"])
+    for name in ("coherent_closest", "incoherent_closest", "occlusion"):
+        assert res[f"{name}_union_bound_ms"] > 0.0
+        assert res[f"{name}_union_bound_by"] in ("operations", "bytes")
+    r = kernel_bench.load_renderer(mini_scene, "cpu")
+    o, d = kernel_bench.bench_batches(r, r.bvh, rows=2, row0=540)["bounce"]
+    n = o.shape[0]
+    z, far = torch.zeros(n), torch.full((n,), float(r.config.t_max))
+    kb = r.bvh
+    stats = {}
+    wide.octet_plain(kb.node_rows, kb.tri_rows, o, d, z, far, group=kb.group_size,
+                     arity=kb.arity, walks=8, occlusion=False, all_definite=False,
+                     cell_masks=False, stats=stats)
+    got = kernel_bench.union_bound(kb, o, d, z, far, walks=8, occlusion=False,
+                                   all_definite=False)
+    assert got == kernel_bench.traversal_bound(stats, n, kb.tri_rows.shape[1], kb.group_size)
+    assert got[2] == (float(stats["box_tests"].sum()) * kernel_bench.OPS_PER_BOX
+                      + float(stats["leaf_visits"].sum()) * kb.group_size
+                      * kernel_bench.OPS_PER_TRIANGLE)

@@ -1,282 +1,401 @@
 // Multi-walk wide-BVH traversal for Hopper (sm_90a): K5, closest hit and
 // occlusion in one templated kernel.
 //
-// Replaces tpurt/kernels/pallas_wide.py::_octet_packets running
+// Replaces tpurt/kernels/pallas_wide.py:1434 _octet_packets running
 // _octet_kernel, reached through traverse_packets(octet=N) and
 // occlusion_packets(octet=N) (KernelPolicy.octet_closest/_occlusion).
-// The contract is K1/K2's (wide_traverse.cu) over the same tables, with
-// tpurt's multi-walk order: the rays are cut into walks of 1024/N
-// consecutive rays (N = 2, 4 or 8, so 512, 256 or 128 rays); a walk
-// takes the direction octant of its first ray and traverses the union of
-// its rays' hit nodes with one stack, each node visited once for the
-// whole walk. Every ray of the walk runs the box tests and the triangle
-// tests of every entry the walk pops, against its own t_best.
+// The contract is kernels/wide.py::octet_plain's, bit for bit: the rays
+// are cut into walks of 1024/N consecutive rays (N = 2, 4 or 8, so 512,
+// 256 or 128 rays), the last one padded with inactive rays (o = 0, d = 1,
+// t_min = 0, t_limit -3e38); a walk takes the direction octant of its
+// first ray and walks the union of its rays' hits: on a node, every ray
+// of the walk tests every non-empty slot against its own t_best and the
+// union of the hit masks decides what is visited next, nearest slot
+// first; on a leaf, every ray runs the G triangle tests, with the cell
+// masks where they apply. In occlusion mode the walk stops before any
+// step at which none of its rays is active and unblocked. That exit is
+// part of the contract: the t/prim of a blocked ray depend on it.
 //
-// Design. One thread block per walk, blockDim = 1024/N, thread i owns
-// ray i of the walk (rays past n are tpurt's padding: inactive, t_limit
-// -3e38). The walk's stack (256 ints, the host checks the exact
-// _stack_bound against it) and the current node or leaf row live in
-// shared memory. A node step: the block reads the 512-byte node row in
-// one coalesced load (one float per thread for the first 128), each
-// thread runs the slab tests of the non-empty slots for its ray in
-// _octet_kernel's (and K1's) expression order, the 16-bit hit masks are
-// OR-ed over the block (__reduce_or_sync per warp, atomicOr into a shared
-// word; the card's counterpart of the TPU's roll-OR collapse), and warp 0
-// pushes the hit children far-first with one ballot, so slot 0 ends on
-// top; a leaf is pushed as -(link+1). A leaf step: the block stages the
-// leaf row and each thread runs the G triangle tests for its ray in
-// _tri_test's order, with cell masks as K1/K2 apply them. tpurt's dummy
-// NaN node row and zero leaf row (which let idle walks run unmasked on
-// the TPU) are not needed: a block whose stack is empty stops.
+// It reads the card tables of kernels/wide.py::card_tables, as K1/K2 do
+// (wide_traverse.cu): child s of a node row is [lo.xyz link][hi.xyz kind],
+// triangle k of a leaf [v0.xyz id][e1.xyz alpha][e2.xyz opaque] with the
+// edges precomputed in the same f32 bits as the plain version's
+// subtraction. Built with --fmad=false and in the plain version's
+// expression order, so t, prim and the flag are bit-equal to it.
 //
-// Exit. Every thread reads the loop condition from shared memory after a
-// barrier, so all threads of a block leave together: the stack is empty,
-// or (occlusion) no ray of the walk is still active and unblocked
-// (__syncthreads_or). tpurt's loop runs until every walk of its
-// 1024-ray program is done; stopping a walk whose rays are all blocked
-// changes only t/prim of rays that are already blocked, which no caller
-// reads. As in tpurt, a blocked ray keeps testing until its walk ends.
+// Design, against what held the first version back (tpurt's float rows
+// staged whole into shared memory with scalar loads, three barriers per
+// node step and two per leaf step, warp 0 alone pushing one entry per hit
+// child onto a 256-int stack, edges recomputed by every thread):
+//  1. No staging. Every thread of a walk reads the same node or triangle
+//     words, straight from the card tables with 16-byte __ldg loads: a
+//     warp-wide broadcast served from L1, with no copy and no barrier. A
+//     node's slots are loaded four at a time and the walk stops after the
+//     first group that ends in an empty slot (empty slots trail).
+//  2. A hit-mask stack per walk, replicated per warp. A node visit pushes
+//     one entry (row, union hit mask | leaf mask << 16) and a pop takes
+//     the lowest set bit, the nearest hit child: the plain version's
+//     far-first push of each hit child, as K1 walks it. The stack holds
+//     one entry per internal level at most (the walk follows one path
+//     from the root, whatever its rays hit), so `depth_bound` entries; an
+//     entry past it ORs cudalib's wide-stack bit into the error word and
+//     ends the walk. Every warp keeps its own copy in shared memory (the
+//     top entry in registers) and updates it from the same union mask, so
+//     no warp waits for another to push.
+//  3. One exchange per step that needs one. A node step: each warp ORs
+//     its lanes' hit masks (__reduce_or_sync), writes the result into its
+//     slot of a small shared array, double-buffered by the exchange's
+//     parity, takes one __syncthreads and ORs every warp's slot. A leaf
+//     step in closest mode needs nothing from other warps and takes no
+//     barrier. In occlusion mode, whether some ray is still active and
+//     unblocked changes only on a leaf step, so one exchange before the
+//     first step and one after each leaf step decide every exit, with the
+//     same exchange. Every warp takes the same sequence of barriers: all
+//     warps of a walk hold equal stacks, updated from the same exchanged
+//     masks, read the same node and leaf words and see the same exchanged
+//     "pending" bit, so they take the same branch at every step, and
+//     padded rays run the loop like any other (no thread leaves early).
+//     Double buffering makes one barrier per exchange enough: a warp that
+//     writes exchange k+1's slot has passed exchange k's barrier, and one
+//     that writes exchange k+2's (the same buffer as k) has passed k+1's,
+//     which every warp reaches only after it has read exchange k.
+//  4. Launch. One block of 1024/N threads per walk, one ray per thread
+//     (LaneRays = 1); at 8 walks also one warp per walk with 4 rays per
+//     lane (LaneRays = 4, four walks to a 128-thread block), whose OR is
+//     one __reduce_or_sync and which takes no barrier at all.
 //
 // Bound. The same f32 work per box and triangle test as K1, times the
-// union: every ray of a walk tests every entry the walk pops, so the
-// walk does more tests than the function needs (PERF.md sets K1's bound
-// on the same rays beside K5's). Built with --fmad=false, so t, prim,
-// pending and blocked equal the plain version (kernels/wide.py::
-// octet_plain) bit for bit. Three barriers per step; a stack overflow
-// ORs bit 1 into the card's error word and ends the walk.
+// union: every ray of a walk tests every entry the walk pops, so the walk
+// does more tests than the function needs (the smoke and kernel_bench set
+// the function's bound, K1/K2's on the same rays, beside the union walk's
+// own).
 //
 // Plain C interface for ctypes: each entry point returns
 // cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kLane = 128;
-constexpr int kMaxStack = 256;
-constexpr int kMaxArity = 16;
+constexpr int kEnd = INT_MIN;       // the walk is over
+constexpr int kWordsPerChild = 2;   // float4 words per child slot
+constexpr int kWordsPerTri = 3;     // float4 words per triangle
+constexpr int kSlotGroup = 4;       // child slots loaded together
+constexpr int kMaxWarps = 16;       // a 512-ray walk
+constexpr int kWarpBlock = 128;     // threads per block of the warp-per-walk launch
 constexpr float kBig = 3.0e38f;
+constexpr unsigned kFull = 0xffffffffu;
 
-template <bool Occlusion>
-__global__ void __launch_bounds__(512)
-wide_octet(const float* __restrict__ node_rows, int n_wide,
-           const float* __restrict__ tri_rows, int row_width,
+// A walk's hit-mask stack as one warp holds it: entries (row, hit | leaf
+// << 16), each with a bit left; the top one in registers (the same in
+// every lane), the ones below it in this warp's column of shared memory,
+// written by lane 0.
+struct WarpStack {
+  int2* base;
+  int cap;
+  int sp;  // entries, the top one included
+  int top_row;
+  unsigned top_bits;
+
+  __device__ __forceinline__ WarpStack(int2* column, int cap_)
+      : base(column), cap(cap_), sp(0), top_row(0), top_bits(0u) {}
+
+  // false when the entry does not fit under the bound
+  __device__ __forceinline__ bool push(int row, unsigned bits) {
+    if (sp >= cap) return false;
+    if (sp > 0) {
+      __syncwarp();  // every lane has read the slot before lane 0 writes it
+      if ((threadIdx.x & 31) == 0) base[sp - 1] = make_int2(top_row, (int)top_bits);
+      __syncwarp();
+    }
+    top_row = row;
+    top_bits = bits;
+    ++sp;
+    return true;
+  }
+
+  // the nearest hit child left: its node row, slot and whether it is a
+  // leaf; false when the stack is empty
+  __device__ __forceinline__ bool pop(int& row, int& slot, bool& leaf) {
+    if (sp == 0) return false;
+    row = top_row;
+    slot = __ffs(top_bits) - 1;
+    leaf = (top_bits >> (16 + slot)) & 1u;
+    top_bits &= ~(0x10001u << slot);
+    if (top_bits == 0u && --sp > 0) {
+      const int2 e = base[sp - 1];
+      top_row = e.x;
+      top_bits = (unsigned)e.y;
+    }
+    return true;
+  }
+};
+
+// The OR of `bits` over the walk's rays. LaneRays = 1: one walk per
+// block, every warp must call it at the same point (see the header).
+template <int LaneRays>
+__device__ __forceinline__ unsigned walk_or(unsigned bits, unsigned (*slots)[kMaxWarps],
+                                            int& parity) {
+  bits = __reduce_or_sync(kFull, bits);
+  if (LaneRays == 1) {
+    const int warps = blockDim.x >> 5;
+    if ((threadIdx.x & 31) == 0) slots[parity][threadIdx.x >> 5] = bits;
+    __syncthreads();
+    bits = 0u;
+    for (int w = 0; w < warps; ++w) bits |= slots[parity][w];
+    parity ^= 1;
+  }
+  return bits;
+}
+
+template <bool Occlusion, bool Masks, int LaneRays>
+__global__ void __launch_bounds__(LaneRays == 1 ? 512 : kWarpBlock)
+octet_walk(const float4* __restrict__ card_nodes, int n_wide, int arity,
+           const float4* __restrict__ card_leaves, int group,
            const float* __restrict__ o, const float* __restrict__ d,
-           const float* __restrict__ t_min_in,
-           const float* __restrict__ t_limit_in,
+           const float* __restrict__ t_min_in, const float* __restrict__ t_limit_in,
            float* __restrict__ t_out, int* __restrict__ prim_out,
-           float* __restrict__ flag_out, int n, int group, int arity,
-           int use_masks, int use_opaque, int apply_masks,
-           int all_definite, int* __restrict__ err) {
-  __shared__ int stack[kMaxStack];
-  __shared__ float row[kLane];
-  __shared__ int s_sp;
-  __shared__ int s_oct;
-  __shared__ unsigned s_mask;
+           float* __restrict__ flag_out, int n, int rays_per_walk, int n_walks,
+           int all_definite, int depth_bound, int* __restrict__ err) {
+  extern __shared__ int2 stack_mem[];  // [warp][depth_bound]
+  __shared__ unsigned or_slots[2][kMaxWarps];
+  constexpr int R = LaneRays;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int walk = LaneRays == 1 ? blockIdx.x : blockIdx.x * (kWarpBlock / 32) + warp;
+  if (LaneRays != 1 && walk >= n_walks) return;  // the whole warp: no barrier follows
+  const int first = walk * rays_per_walk;
 
-  const int rpw = blockDim.x;
-  const int tid = threadIdx.x;
-  const int i = blockIdx.x * rpw + tid;
-  const bool real = i < n;
-
-  // tpurt's padding for rays past n: o = 0, d = 1, t_min = 0, inactive
-  const float ox = real ? o[3 * i + 0] : 0.0f;
-  const float oy = real ? o[3 * i + 1] : 0.0f;
-  const float oz = real ? o[3 * i + 2] : 0.0f;
-  const float dx = real ? d[3 * i + 0] : 1.0f;
-  const float dy = real ? d[3 * i + 1] : 1.0f;
-  const float dz = real ? d[3 * i + 2] : 1.0f;
-  const float t_min = real ? t_min_in[i] : 0.0f;
-  const float tiny = 1e-20f;
-  const float inv_x = (dx >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dx), tiny);
-  const float inv_y = (dy >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dy), tiny);
-  const float inv_z = (dz >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dz), tiny);
-
-  float t_best = real ? t_limit_in[i] : -kBig;
-  int prim = -1;
-  float flag = 0.0f;  // blocked (occlusion) or pending (closest, cell masks)
-
-  if (tid == 0) {
-    // the walk's octant: its first ray's (always a real ray)
-    s_oct = (dx < 0.0f ? 4 : 0) + (dy < 0.0f ? 2 : 0) + (dz < 0.0f ? 1 : 0);
-    stack[0] = 0;  // wide root
-    s_sp = 1;
+  // this thread's rays: ray r of a lane is the walk's ray
+  // (LaneRays == 1 ? threadIdx.x : lane + 32 * r); rays past n are padding
+  float ox[R], oy[R], oz[R], dx[R], dy[R], dz[R], inv_x[R], inv_y[R], inv_z[R];
+  float t_min[R], t_best[R], flag[R];
+  int prim[R];
+  bool real[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = first + (LaneRays == 1 ? (int)threadIdx.x : lane + 32 * r);
+    real[r] = i < n;
+    ox[r] = real[r] ? o[3 * i + 0] : 0.0f;
+    oy[r] = real[r] ? o[3 * i + 1] : 0.0f;
+    oz[r] = real[r] ? o[3 * i + 2] : 0.0f;
+    dx[r] = real[r] ? d[3 * i + 0] : 1.0f;
+    dy[r] = real[r] ? d[3 * i + 1] : 1.0f;
+    dz[r] = real[r] ? d[3 * i + 2] : 1.0f;
+    t_min[r] = real[r] ? t_min_in[i] : 0.0f;
+    t_best[r] = real[r] ? t_limit_in[i] : -kBig;
+    const float tiny = 1e-20f;
+    // sign / max(|d|, 1e-20), as pallas_wide.py:544-547
+    inv_x[r] = (dx[r] >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dx[r]), tiny);
+    inv_y[r] = (dy[r] >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dy[r]), tiny);
+    inv_z[r] = (dz[r] >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(dz[r]), tiny);
+    prim[r] = -1;
+    flag[r] = 0.0f;  // blocked (occlusion) or pending (closest, cell masks)
   }
-  __syncthreads();
-  const float* nodes = node_rows + (size_t)s_oct * n_wide * kLane;
-  const int link0 = 6 * arity, kind0 = 7 * arity;
-  const int id_base = group * (9 + use_masks + use_opaque);
 
-  while (true) {
-    const int sp = s_sp;
-    if (sp <= 0) break;  // the same value in every thread
-    if (Occlusion) {
-      if (!__syncthreads_or(flag == 0.0f && t_best > -1e37f)) break;
-    }
-    const int entry = stack[sp - 1];
-    if (entry >= 0) {
-      const float* src = nodes + (size_t)entry * kLane;
-      for (int k = tid; k < kLane; k += rpw) row[k] = __ldg(src + k);
-      if (tid == 0) s_mask = 0u;
-      __syncthreads();
-      unsigned bits = 0u;
-      for (int s = 0; s < arity; ++s) {
-        if ((int)row[kind0 + s] <= 0) continue;
-        const float* b = row + 6 * s;
-        const float t0x = (b[0] - ox) * inv_x;
-        const float t0y = (b[1] - oy) * inv_y;
-        const float t0z = (b[2] - oz) * inv_z;
-        const float t1x = (b[3] - ox) * inv_x;
-        const float t1y = (b[4] - oy) * inv_y;
-        const float t1z = (b[5] - oz) * inv_z;
-        const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                               fmaxf(fminf(t0z, t1z), t_min));
-        const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                               fminf(fmaxf(t0z, t1z), t_best));
-        if (tn <= tf) bits |= 1u << s;
-      }
-      bits = __reduce_or_sync(0xffffffffu, bits);
-      if ((tid & 31) == 0 && bits) atomicOr(&s_mask, bits);
-      __syncthreads();
-      if (tid < 32) {
-        // warp 0 pushes: lane s holds slot s; slots above s go first
-        const unsigned m = s_mask;
-        const int s = tid;
-        bool push = false;
-        int child = 0;
-        if (s < arity && ((m >> s) & 1u)) {
-          const int kind = (int)row[kind0 + s];
-          if (kind > 0) {
-            const int link = (int)row[link0 + s];
-            child = kind == 2 ? -(link + 1) : link;
-            push = true;
-          }
-        }
-        const unsigned pm = __ballot_sync(0xffffffffu, push);
-        const int base = sp - 1;
-        const int top = base + __popc(pm);
-        if (push) {
-          const int pos = base + __popc(pm >> (s + 1));
-          if (pos < kMaxStack) stack[pos] = child;
-        }
-        if (tid == 0) {
-          if (top > kMaxStack) {
-            atomicOr(err, 1);  // cudalib.ERR_WIDE_STACK; the walk ends
-            s_sp = 0;
+  // the walk's octant: its first ray's (always a real ray)
+  const float* d0 = d + 3 * (size_t)first;
+  const int oct = (d0[0] < 0.0f ? 4 : 0) + (d0[1] < 0.0f ? 2 : 0) + (d0[2] < 0.0f ? 1 : 0);
+  const int row_words = arity * kWordsPerChild;
+  const float4* nodes = card_nodes + (size_t)oct * n_wide * row_words;
+
+  WarpStack stack(stack_mem + warp * depth_bound, depth_bound);
+  int parity = 0;
+  bool overflow = false;
+
+  // whether some ray of this thread is active and unblocked
+  auto pending = [&]() -> unsigned {
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r) any |= flag[r] == 0.0f && t_best[r] > -1e37f;
+    return any ? 1u : 0u;
+  };
+  // next entry: a node row (>= 0), a leaf as -(leaf + 1), or kEnd
+  auto next = [&]() -> int {
+    int row, slot;
+    bool leaf;
+    if (!stack.pop(row, slot, leaf)) return kEnd;
+    const int link = __float_as_int(
+        __ldg(&nodes[(size_t)row * row_words + kWordsPerChild * slot].w));
+    return leaf ? -(link + 1) : link;
+  };
+
+  int c = 0;  // the wide root
+  if (Occlusion && !walk_or<R>(pending(), or_slots, parity)) c = kEnd;
+  while (c != kEnd) {
+    if (c >= 0) {
+      // ---- node step: every ray tests every non-empty slot ----
+      const float4* row = nodes + (size_t)c * row_words;
+      unsigned hit = 0u, leaf_kind = 0u;
+      for (int s0 = 0; s0 < arity; s0 += kSlotGroup) {
+        float4 lo[kSlotGroup], hi[kSlotGroup];
+#pragma unroll
+        for (int j = 0; j < kSlotGroup; ++j) {
+          if (s0 + j < arity) {
+            lo[j] = __ldg(row + kWordsPerChild * (s0 + j));
+            hi[j] = __ldg(row + kWordsPerChild * (s0 + j) + 1);
           } else {
-            s_sp = top;
+            hi[j].w = __int_as_float(0);
           }
         }
+#pragma unroll
+        for (int j = 0; j < kSlotGroup; ++j) {
+          const int kind = __float_as_int(hi[j].w);
+          if (kind == 0) continue;  // empty: its inverted box passes the slab test
+          if (kind == 2) leaf_kind |= 1u << (s0 + j);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float t0x = (lo[j].x - ox[r]) * inv_x[r];
+            const float t0y = (lo[j].y - oy[r]) * inv_y[r];
+            const float t0z = (lo[j].z - oz[r]) * inv_z[r];
+            const float t1x = (hi[j].x - ox[r]) * inv_x[r];
+            const float t1y = (hi[j].y - oy[r]) * inv_y[r];
+            const float t1z = (hi[j].z - oz[r]) * inv_z[r];
+            const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                                   fmaxf(fminf(t0z, t1z), t_min[r]));
+            const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                                   fminf(fmaxf(t0z, t1z), t_best[r]));
+            if (tn <= tf) hit |= 1u << (s0 + j);
+          }
+        }
+        // empty slots trail: a group that ends in one is the last
+        if (__float_as_int(hi[kSlotGroup - 1].w) == 0) break;
       }
-      __syncthreads();
+      hit = walk_or<R>(hit, or_slots, parity);
+      if (hit != 0u && !stack.push(c, hit | ((hit & leaf_kind) << 16))) {
+        overflow = true;
+        break;
+      }
+      c = next();
     } else {
-      const float* src = tri_rows + (size_t)(-entry - 1) * row_width;
-      for (int k = tid; k < row_width; k += rpw) row[k] = __ldg(src + k);
-      __syncthreads();
+      // ---- leaf step: every ray runs the G triangle tests ----
+      const float4* tri = card_leaves + (size_t)(-c - 1) * group * kWordsPerTri;
       for (int k = 0; k < group; ++k) {
-        const float* v = row + 9 * k;
-        const float v0x = v[0], v0y = v[1], v0z = v[2];
-        const float e1x = v[3] - v0x, e1y = v[4] - v0y, e1z = v[5] - v0z;
-        const float e2x = v[6] - v0x, e2y = v[7] - v0y, e2z = v[8] - v0z;
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const bool ok = fabsf(det) > 1e-12f;
-        const float inv_det = ok ? 1.0f / det : 0.0f;
-        const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-        const float u = (tx * px + ty * py + tz * pz) * inv_det;
-        const float qx = ty * e1z - tz * e1y;
-        const float qy = tz * e1x - tx * e1z;
-        const float qz = tx * e1y - ty * e1x;
-        const float vv = (dx * qx + dy * qy + dz * qz) * inv_det;
-        const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-        const bool hit = ok && u >= 0.0f && vv >= 0.0f && u + vv <= 1.0f &&
-                         t > t_min && t < t_best;
-        if (!hit) continue;
-        bool testable = false;
-        if (apply_masks) {
-          const int m = (int)row[group * 9 + k];
-          const int cu = min(max((int)(u * 4.0f), 0), 3);
-          const int cv = min(max((int)(vv * 4.0f), 0), 3);
-          const int cell = cu * 4 + cv;
-          if ((m >> cell) & 1) continue;  // decided-transparent cell
-          testable = ((m >> 16) & 1) == 1;
-          if (use_opaque) {
-            const int om = (int)row[group * 10 + k];
-            testable = testable && (((om >> cell) & 1) == 0);
+        const float4 w0 = __ldg(tri + kWordsPerTri * k);
+        const float4 w1 = __ldg(tri + kWordsPerTri * k + 1);
+        const float4 w2 = __ldg(tri + kWordsPerTri * k + 2);
+        const float v0x = w0.x, v0y = w0.y, v0z = w0.z;
+        const float e1x = w1.x, e1y = w1.y, e1z = w1.z;
+        const float e2x = w2.x, e2y = w2.y, e2z = w2.z;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float px = dy[r] * e2z - dz[r] * e2y;
+          const float py = dz[r] * e2x - dx[r] * e2z;
+          const float pz = dx[r] * e2y - dy[r] * e2x;
+          const float det = e1x * px + e1y * py + e1z * pz;
+          const bool ok = fabsf(det) > 1e-12f;
+          const float inv_det = ok ? 1.0f / det : 0.0f;
+          const float tx = ox[r] - v0x, ty = oy[r] - v0y, tz = oz[r] - v0z;
+          const float u = (tx * px + ty * py + tz * pz) * inv_det;
+          const float qx = ty * e1z - tz * e1y;
+          const float qy = tz * e1x - tx * e1z;
+          const float qz = tx * e1y - ty * e1x;
+          const float vv = (dx[r] * qx + dy[r] * qy + dz[r] * qz) * inv_det;
+          const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+          const bool hit = ok && u >= 0.0f && vv >= 0.0f && u + vv <= 1.0f &&
+                           t > t_min[r] && t < t_best[r];
+          if (!hit) continue;
+          bool testable = false;
+          if (Masks) {
+            const int m = __float_as_int(w1.w);
+            const int cu = min(max((int)(u * 4.0f), 0), 3);
+            const int cv = min(max((int)(vv * 4.0f), 0), 3);
+            const int cell = cu * 4 + cv;
+            if ((m >> cell) & 1) continue;  // decided-transparent cell
+            const int om = __float_as_int(w2.w);  // 0 without an opaque column
+            testable = ((m >> 16) & 1) == 1 && ((om >> cell) & 1) == 0;
+          }
+          t_best[r] = t;
+          prim[r] = __float_as_int(w0.w);
+          if (Occlusion) {
+            if (Masks ? !testable : all_definite) flag[r] = 1.0f;
+          } else if (Masks) {
+            flag[r] = testable ? 1.0f : 0.0f;
           }
         }
-        t_best = t;
-        prim = (int)row[id_base + k];
-        if (Occlusion) {
-          if (use_masks ? !testable : all_definite) flag = 1.0f;
-        } else if (apply_masks) {
-          flag = testable ? 1.0f : 0.0f;
-        }
       }
-      if (tid == 0) s_sp = sp - 1;
-      __syncthreads();
+      c = (Occlusion && !walk_or<R>(pending(), or_slots, parity)) ? kEnd : next();
     }
   }
-  if (real) {
-    t_out[i] = t_best;
-    prim_out[i] = prim;
-    flag_out[i] = flag;
+  if (overflow) {
+    if (lane == 0 && (LaneRays != 1 || warp == 0)) atomicOr(err, 1);  // cudalib.ERR_WIDE_STACK
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (!real[r]) continue;
+    const int i = first + (LaneRays == 1 ? (int)threadIdx.x : lane + 32 * r);
+    t_out[i] = t_best[r];
+    prim_out[i] = prim[r];
+    flag_out[i] = flag[r];
   }
 }
 
+template <bool Occlusion, bool Masks, int LaneRays>
+int launch_walk(const void* card_nodes, int n_wide, int arity, const void* card_leaves,
+                int group, const void* o, const void* d, const void* t_min,
+                const void* t_limit, void* t_out, void* prim_out, void* flag_out, int n,
+                int rays_per_walk, int all_definite, int depth_bound, void* err,
+                void* stream) {
+  const int n_walks = (n + rays_per_walk - 1) / rays_per_walk;
+  const int threads = LaneRays == 1 ? rays_per_walk : kWarpBlock;
+  const int walks_per_block = LaneRays == 1 ? 1 : kWarpBlock / 32;
+  const int blocks = (n_walks + walks_per_block - 1) / walks_per_block;
+  const size_t smem = (size_t)(threads / 32) * depth_bound * sizeof(int2);
+  octet_walk<Occlusion, Masks, LaneRays><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const float4*)card_nodes, n_wide, arity, (const float4*)card_leaves, group,
+      (const float*)o, (const float*)d, (const float*)t_min, (const float*)t_limit,
+      (float*)t_out, (int*)prim_out, (float*)flag_out, n, rays_per_walk, n_walks,
+      all_definite, depth_bound, (int*)err);
+  return (int)cudaGetLastError();
+}
+
 template <bool Occlusion>
-int launch(const void* node_rows, int n_wide, const void* tri_rows,
-           int row_width, const void* o, const void* d, const void* t_min,
-           const void* t_limit, void* t_out, void* prim_out, void* flag_out,
-           int n, int group, int arity, int use_masks, int use_opaque,
-           int apply_masks, int all_definite, int walks, void* err,
+int launch(const void* card_nodes, int n_wide, int arity, const void* card_leaves,
+           int group, const void* o, const void* d, const void* t_min, const void* t_limit,
+           void* t_out, void* prim_out, void* flag_out, int n, int apply_masks,
+           int all_definite, int walks, int depth_bound, int lane_rays, void* err,
            void* stream) {
   if (n <= 0) return 0;
   if (walks != 2 && walks != 4 && walks != 8) return (int)cudaErrorInvalidValue;
-  if (arity > kMaxArity || row_width > kLane) return (int)cudaErrorInvalidValue;
-  const int rpw = 1024 / walks;
-  const int blocks = (n + rpw - 1) / rpw;
-  wide_octet<Occlusion><<<blocks, rpw, 0, (cudaStream_t)stream>>>(
-      (const float*)node_rows, n_wide, (const float*)tri_rows, row_width,
-      (const float*)o, (const float*)d, (const float*)t_min,
-      (const float*)t_limit, (float*)t_out, (int*)prim_out, (float*)flag_out,
-      n, group, arity, use_masks, use_opaque, apply_masks, all_definite,
-      (int*)err);
-  return (int)cudaGetLastError();
+  if (arity < 1 || arity > 16 || depth_bound < 1) return (int)cudaErrorInvalidValue;
+  const int rays_per_walk = 1024 / walks;
+  if (lane_rays == 4 && rays_per_walk != 32 * 4) return (int)cudaErrorInvalidValue;
+  if (lane_rays != 1 && lane_rays != 4) return (int)cudaErrorInvalidValue;
+  auto* fn = lane_rays == 4
+                 ? (apply_masks ? &launch_walk<Occlusion, true, 4>
+                                : &launch_walk<Occlusion, false, 4>)
+                 : (apply_masks ? &launch_walk<Occlusion, true, 1>
+                                : &launch_walk<Occlusion, false, 1>);
+  return fn(card_nodes, n_wide, arity, card_leaves, group, o, d, t_min, t_limit, t_out,
+            prim_out, flag_out, n, rays_per_walk, all_definite, depth_bound, err, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-int tpurt_octet_closest(const void* node_rows, int n_wide, const void* tri_rows,
-                        int row_width, const void* o, const void* d,
+int tpurt_octet_closest(const void* card_nodes, int n_wide, int arity,
+                        const void* card_leaves, int group, const void* o, const void* d,
                         const void* t_min, const void* t_limit, void* t_out,
-                        void* prim_out, void* flag_out, int n, int group,
-                        int arity, int use_masks, int use_opaque,
-                        int apply_masks, int all_definite, int walks,
+                        void* prim_out, void* flag_out, int n, int apply_masks,
+                        int all_definite, int walks, int depth_bound, int lane_rays,
                         void* err, void* stream) {
-  return launch<false>(node_rows, n_wide, tri_rows, row_width, o, d, t_min,
-                       t_limit, t_out, prim_out, flag_out, n, group, arity,
-                       use_masks, use_opaque, apply_masks, all_definite,
-                       walks, err, stream);
+  return launch<false>(card_nodes, n_wide, arity, card_leaves, group, o, d, t_min,
+                       t_limit, t_out, prim_out, flag_out, n, apply_masks, all_definite,
+                       walks, depth_bound, lane_rays, err, stream);
 }
 
-int tpurt_octet_occlusion(const void* node_rows, int n_wide,
-                          const void* tri_rows, int row_width, const void* o,
-                          const void* d, const void* t_min,
-                          const void* t_limit, void* t_out, void* prim_out,
-                          void* flag_out, int n, int group, int arity,
-                          int use_masks, int use_opaque, int apply_masks,
-                          int all_definite, int walks, void* err,
-                          void* stream) {
-  return launch<true>(node_rows, n_wide, tri_rows, row_width, o, d, t_min,
-                      t_limit, t_out, prim_out, flag_out, n, group, arity,
-                      use_masks, use_opaque, apply_masks, all_definite, walks,
-                      err, stream);
+int tpurt_octet_occlusion(const void* card_nodes, int n_wide, int arity,
+                          const void* card_leaves, int group, const void* o,
+                          const void* d, const void* t_min, const void* t_limit,
+                          void* t_out, void* prim_out, void* flag_out, int n,
+                          int apply_masks, int all_definite, int walks, int depth_bound,
+                          int lane_rays, void* err, void* stream) {
+  return launch<true>(card_nodes, n_wide, arity, card_leaves, group, o, d, t_min,
+                      t_limit, t_out, prim_out, flag_out, n, apply_masks, all_definite,
+                      walks, depth_bound, lane_rays, err, stream);
 }
 
 }  // extern "C"

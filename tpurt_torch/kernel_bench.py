@@ -23,7 +23,8 @@ batch's time stands its bound (`traversal_bound`): the least time the
 card could take for the box and triangle tests that the plain version
 counts on the same rays. `--octet N`
 times the multi-walk kernel K5 with N walks per 1024 rays in place of
-K1/K2. `--stepcost K` runs the step-cost instrument K6 on the sorted
+K1/K2, and sets the union walk's own bound (`union_bound`) beside the
+function's. `--stepcost K` runs the step-cost instrument K6 on the sorted
 bounce batch: exactly K steps per ray, once per configuration (full,
 -leaf, -push, -extract, -box, each dropping one phase more), and prints
 each one's ms and ns per ray-step and the per-phase differences.
@@ -102,6 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--octet", type=int, default=0, choices=(0,) + wide.OCTET_WALKS,
                     help="time the multi-walk kernel K5 with N walks per "
                          "1024 rays in place of K1/K2")
+    ap.add_argument("--octet-variants", action="store_true",
+                    help="time K5 at 8 walks with one ray per thread and with "
+                         "one warp per walk (4 rays per lane), and K1/K2, in turns")
     ap.add_argument("--stepcost", type=int, default=0,
                     help="run the step-cost instrument K6 at this many "
                          "steps per ray (e.g. 256)")
@@ -205,6 +209,18 @@ def traversal_bound(stats: dict, n: int, row_width: int, group: int) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
 
 
+def union_bound(kbvh: wide.WideKernelBVH, o, d, t_min, t_limit, *, walks: int,
+                occlusion: bool, all_definite: bool) -> tuple:
+    """traversal_bound of the multi-walk union K5 walks: from the stats of
+    wide.octet_plain on the same rays, where every ray of a walk tests
+    every entry its walk pops. Returns what traversal_bound returns."""
+    stats = {}
+    wide.octet_plain(kbvh.node_rows, kbvh.tri_rows, o, d, t_min, t_limit,
+                     group=kbvh.group_size, arity=kbvh.arity, walks=walks, occlusion=occlusion,
+                     all_definite=all_definite, cell_masks=False, stats=stats)
+    return traversal_bound(stats, o.shape[0], kbvh.tri_rows.shape[1], kbvh.group_size)
+
+
 def rope_bound(stats: dict, n: int, row_width: int, group: int) -> tuple:
     """traversal_bound for the rope walk, from the stats of
     rope.traverse_plain: one box test per step, G triangle tests per leaf
@@ -258,6 +274,25 @@ def rope_timings(r: Renderer, b: dict, reps: int) -> dict:
         out[f"{name}_steps_per_ray"] = float(stats["node_visits"].float().mean())
         out[f"{name}_leaf_tests_per_ray"] = float(stats["leaf_visits"].float().mean())
     return out
+
+
+def octet_variants(kbvh: wide.WideKernelBVH, name: str, o, d, t_min, t_limit,
+                   occlusion: bool, all_definite: bool, reps: int) -> dict:
+    """K5 at 8 walks launched both ways (one block per walk, one ray per
+    thread; one warp per walk, 4 rays per lane) and K1/K2, in turns over
+    two passes: each one's median ms per pass."""
+    dev = o.device
+    kw = dict(occlusion=occlusion, all_definite=all_definite, cell_masks=False)
+    fns = {f"{name}_k5_lanes1": lambda: wide.octet_cuda(kbvh, o, d, t_min, t_limit, walks=8,
+                                                          lane_rays=1, **kw),
+           f"{name}_k5_lanes4": lambda: wide.octet_cuda(kbvh, o, d, t_min, t_limit, walks=8,
+                                                          lane_rays=4, **kw),
+           f"{name}_k1_k2": lambda: wide.traverse_cuda(kbvh, o, d, t_min, t_limit, **kw)}
+    out = {k: [] for k in fns}
+    for _ in range(2):
+        for k, fn in fns.items():
+            out[k].append(median_ms(fn, reps, dev))
+    return {f"{k}_ms": v for k, v in out.items()}
 
 
 def median_ms(fn, reps: int, device: torch.device) -> float:
@@ -355,6 +390,14 @@ def main(argv=None) -> dict:
         results[f"{name}_mrays"] = n / ms / 1e3
         results[f"{name}_bound_ms"] = bound_ms
         results[f"{name}_bound_by"] = bound_by
+        if args.octet:
+            u_ms, u_by, _, _ = union_bound(kbvh, o, d, t_min, t_limit, walks=args.octet,
+                                           occlusion=occlusion, all_definite=not r.has_alpha)
+            results[f"{name}_union_bound_ms"] = u_ms
+            results[f"{name}_union_bound_by"] = u_by
+        if args.octet_variants:
+            results.update(octet_variants(kbvh, name, o, d, t_min, t_limit, occlusion,
+                                          not r.has_alpha, args.reps))
     if args.rope:
         results.update(rope_timings(r, b, args.reps))
     if args.stepcost:

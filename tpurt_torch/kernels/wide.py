@@ -25,9 +25,10 @@ Three parts:
    `octet=N` the multi-walk kernel) and `stepcost_packets`. A CPU tensor
    goes to the plain version; a CUDA tensor goes to the hand-written
    kernel, built with nvcc on first use and bound through ctypes:
-   csrc/wide_traverse.cu (K1 closest hit, K2 occlusion, over the card
-   tables), csrc/wide_octet.cu (K5), csrc/wide_stepcost.cu (K6). There
-   is no fallback from one to the other.
+   csrc/wide_traverse.cu (K1 closest hit, K2 occlusion),
+   csrc/wide_octet.cu (K5), csrc/wide_stepcost.cu (K6), all three over
+   the card tables and their hit-mask stacks. There is no fallback from
+   one to the other.
 
 Per-ray semantics of K1/K2. A ray picks the node rows of its own
 direction octant; tpurt's Pallas kernel picks one octant per 1024-ray
@@ -39,9 +40,10 @@ blocker and otherwise keeps the closest uncertain (alpha-testable) hit.
 K1/K2 keep one hit-mask entry per visited node where the plain version
 pushes one entry per hit child; popping the lowest set bit visits the
 children in the same order, so the two agree bit for bit, prim and flag
-included. K5 walks in tpurt's multi-walk order (`octet_plain`), so it
-gives K1's t (prim but for ties) and, without mask columns, K2's
-blocked set.
+included. K5 and K6 keep the same entries (K5 one stack per walk, with
+the union of its rays' hit masks). K5 walks in tpurt's multi-walk order
+(`octet_plain`), so it gives K1's t (prim but for ties) and, without
+mask columns, K2's blocked set.
 """
 
 from __future__ import annotations
@@ -58,11 +60,12 @@ from tpurt_torch.kernels.intersect import mask_cell, ray_triangle_rows
 
 ARITY = 16
 _LANE = 128
-# per-ray stack capacity (ints) of the per-child-push walks: the plain
-# versions, K5 and K6
+# per-ray (per-walk) stack capacity (ints) of the per-child-push walks:
+# the plain versions only
 MAX_STACK = 256
-# K1/K2 keep their hit-mask entries (8 bytes each) in the dynamic shared
-# memory of a 128-thread block, at most 227 KB
+# K1/K2 and K6 keep their hit-mask entries (8 bytes each) in the dynamic
+# shared memory of a 128-thread block, at most 227 KB (K5 keeps one stack
+# per warp, at most 16 x MAX_DEPTH entries)
 MAX_DEPTH = 232448 // (128 * 8)
 _BIG = 3.0e38
 
@@ -77,8 +80,9 @@ LAUNCHES = {"closest": 0, "occlusion": 0, "octet_closest": 0, "octet_occlusion":
 
 @dataclasses.dataclass(frozen=True)
 class CardTables:
-    """tpurt's node and leaf rows, the same numbers laid out for K1/K2's
-    16-byte loads (int32 words; floats as their bits):
+    """tpurt's node and leaf rows, the same numbers laid out for the
+    16-byte loads of K1/K2, K5 and K6 (int32 words; floats as their
+    bits):
 
     nodes  (8, W, arity, 8): child s of a row is [lo.x lo.y lo.z link]
            [hi.x hi.y hi.z kind], in the row's near-to-far slot order,
@@ -102,7 +106,7 @@ class WideKernelBVH:
     arity: int = ARITY
     stack_bound: int = 1     # exact worst-case stack depth of this topology
     depth_bound: int = 1     # hit-mask entries a K1/K2 walk holds at most
-    card: Optional[CardTables] = None  # K1/K2's copy of the tables
+    card: Optional[CardTables] = None  # the kernels' copy of the tables
 
     @property
     def group_size(self) -> int:
@@ -339,7 +343,7 @@ def _exact_ints(x: torch.Tensor, name: str) -> torch.Tensor:
 
 def card_tables(node_rows: torch.Tensor, tri_rows: torch.Tensor, group: int,
                 arity: int = ARITY) -> CardTables:
-    """K1/K2's copy of tpurt's tables (see CardTables), built on their
+    """The kernels' copy of tpurt's tables (see CardTables), built on their
     device. Every float is copied, or is one f32 subtraction (the edges);
     links, kinds, masks and ids are converted to int32 once, here. Raises
     unless the links, kinds, masks and ids are exact integers below 2^24,
@@ -376,7 +380,7 @@ def make_wide_kernel_bvh(tribvh: TriBVH, tri_pos, tri_alpha_mask=None,
                          tri_alpha_opaque=None, arity: int = ARITY,
                          device="cuda", collapse=None) -> WideKernelBVH:
     """Collapse (unless `collapse` is given), pack, move the tables to
-    `device` and build K1/K2's card tables there."""
+    `device` and build the kernels' card tables there."""
     if collapse is None:
         collapse = collapse_to_wide(tribvh, arity)
     arity = collapse[0].shape[1]
@@ -819,8 +823,11 @@ _ARGTYPES = {name: cudalib.argtypes("piipipppppppiiiipp")
              for name in ("tpurt_wide_closest", "tpurt_wide_occlusion")}
 
 
-def _check_launch(kbvh: WideKernelBVH, o, d, t_min, t_limit):
-    """Raise unless the tables and rays are what the wide kernels read."""
+def _check_launch(kbvh: WideKernelBVH, o, d, t_min, t_limit, plain_stack: bool = True):
+    """Raise unless the tables and rays are what the wide kernels read and,
+    with `plain_stack`, the topology's per-child stack bound fits the plain
+    versions' MAX_STACK (K1's and K6's equality with them rests on it; K5
+    does without)."""
     dev = o.device
     n = o.shape[0]
     for name, x in (("node_rows", kbvh.node_rows), ("tri_rows", kbvh.tri_rows),
@@ -835,13 +842,13 @@ def _check_launch(kbvh: WideKernelBVH, o, d, t_min, t_limit):
     cudalib.check(kbvh.tri_rows, "tri_rows", tuple(kbvh.tri_rows.shape))
     if kbvh.arity * 8 > _LANE:
         raise ValueError(f"arity {kbvh.arity} does not fit a node row")
-    if kbvh.stack_bound > MAX_STACK:
+    if plain_stack and kbvh.stack_bound > MAX_STACK:
         raise ValueError(f"stack bound {kbvh.stack_bound} exceeds the kernel's "
                          f"{MAX_STACK}-entry stack")
 
 
 def _check_card(kbvh: WideKernelBVH, dev) -> CardTables:
-    """Raise unless K1/K2's card tables are there, on the rays' device,
+    """Raise unless the card tables are there, on the rays' device,
     int32, contiguous, 16-byte aligned and of the tables' shape, and the
     depth bound fits the kernel's shared-memory stack."""
     card = kbvh.card
@@ -898,23 +905,28 @@ def traverse_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, occlusion: bool,
 
 
 _OCTET_LIB = "wide_octet"
-_OCTET_ARGTYPES = {name: cudalib.argtypes("pipipppppppiiiiiiiipp")
+_OCTET_ARGTYPES = {name: cudalib.argtypes("piipipppppppiiiiiipp")
                    for name in ("tpurt_octet_closest", "tpurt_octet_occlusion")}
+# K5's launch: one block per walk, one ray per thread (1), or at 8 walks
+# one warp per walk with 4 rays per lane (4)
+OCTET_LANE_RAYS = (1, 4)
 
 
 def octet_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, walks: int, occlusion: bool,
-               all_definite: bool, cell_masks: bool):
-    """Launch K5 (csrc/wide_octet.cu) on the current stream: one block per
-    walk of PACKET // walks rays. Returns (t, prim, flag) as octet_plain
-    does; a stack overflow surfaces at the next
-    cudalib.check_kernel_errors."""
+               all_definite: bool, cell_masks: bool, lane_rays: int = 1):
+    """Launch K5 (csrc/wide_octet.cu) over the card tables on the current
+    stream: one block per walk of PACKET // walks rays, or with
+    `lane_rays` 4 (8 walks only) one warp per walk. Returns (t, prim,
+    flag) as octet_plain does, bit for bit; a walk past the depth bound
+    surfaces at the next cudalib.check_kernel_errors."""
     if walks not in OCTET_WALKS:
         raise ValueError(f"octet walks must be one of {OCTET_WALKS}, got {walks}")
+    if lane_rays not in OCTET_LANE_RAYS or (lane_rays > 1 and PACKET // walks != 32 * lane_rays):
+        raise ValueError(f"lane_rays {lane_rays} does not fit walks of {PACKET // walks} rays")
     dev = o.device
     n = o.shape[0]
-    _check_launch(kbvh, o, d, t_min, t_limit)
-    if kbvh.tri_rows.shape[1] > _LANE:
-        raise ValueError(f"leaf rows of {kbvh.tri_rows.shape[1]} floats exceed {_LANE}")
+    _check_launch(kbvh, o, d, t_min, t_limit, plain_stack=False)
+    card = _check_card(kbvh, dev)
     t, prim, flag = _outputs(n, dev)
     if n == 0:
         return t, prim, flag
@@ -923,12 +935,11 @@ def octet_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, walks: int, occlusi
     fn = lib.tpurt_octet_occlusion if occlusion else lib.tpurt_octet_closest
     apply_masks = kbvh.use_masks and (occlusion or cell_masks)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(kbvh.node_rows.data_ptr(), kbvh.node_rows.shape[1],
-            kbvh.tri_rows.data_ptr(), kbvh.tri_rows.shape[1],
+    rc = fn(card.nodes.data_ptr(), kbvh.node_rows.shape[1], kbvh.arity,
+            card.leaves.data_ptr(), kbvh.group_size,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
             t.data_ptr(), prim.data_ptr(), flag.data_ptr(), n,
-            kbvh.group_size, kbvh.arity, int(kbvh.use_masks),
-            int(kbvh.use_opaque), int(apply_masks), int(all_definite), walks,
+            int(apply_masks), int(all_definite), walks, kbvh.depth_bound, lane_rays,
             err.data_ptr(), stream)
     cudalib.launch_check(rc, "multi-walk traversal")
     LAUNCHES["octet_occlusion" if occlusion else "octet_closest"] += 1
@@ -1008,7 +1019,7 @@ def occlusion_packets(kbvh: WideKernelBVH, o, d, t_min, t_limit, active,
 # ---- K6: the step-cost instrument -------------------------------------------
 
 _STEPCOST_LIB = "wide_stepcost"
-_STEPCOST_ARGTYPES = {"tpurt_stepcost": cudalib.argtypes("pipipppppppiiiiiiiiip")}
+_STEPCOST_ARGTYPES = {"tpurt_stepcost": cudalib.argtypes("piipipppppppiiiiiiipp")}
 # kernel_bench's configurations, each dropping one phase more (tpurt's
 # kernel_bench.py:290-297 without the TPU's collapse phase)
 STEPCOST_CONFIGS = (
@@ -1024,9 +1035,11 @@ _STEPCOST_ALL_ON = dict(do_box=True, do_extract=True, do_push=True, do_leaf=True
 def stepcost_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, steps: int,
                   do_box: bool = True, do_extract: bool = True, do_push: bool = True,
                   do_leaf: bool = True):
-    """Launch K6 (csrc/wide_stepcost.cu) on the current stream. Returns
-    (t, prim, acc) as stepcost_plain does. The kernel is built for the
-    phase combinations of STEPCOST_CONFIGS only; any other is refused."""
+    """Launch K6 (csrc/wide_stepcost.cu) over the card tables on the
+    current stream. Returns (t, prim, acc) as stepcost_plain does, bit for
+    bit. The kernel is built for the phase combinations of
+    STEPCOST_CONFIGS only; any other is refused. A walk past the depth
+    bound surfaces at the next cudalib.check_kernel_errors."""
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
     toggles = dict(do_box=do_box, do_extract=do_extract, do_push=do_push, do_leaf=do_leaf)
@@ -1036,19 +1049,19 @@ def stepcost_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, steps: int,
     dev = o.device
     n = o.shape[0]
     _check_launch(kbvh, o, d, t_min, t_limit)
+    card = _check_card(kbvh, dev)
     t, prim, acc = _outputs(n, dev, torch.int32)
     if n == 0:
         return t, prim, acc
     lib = cudalib.load(_STEPCOST_LIB, _STEPCOST_ARGTYPES)
-    g = kbvh.group_size
-    id_base = g * (9 + int(kbvh.use_masks) + int(kbvh.use_opaque))
+    err = cudalib.error_word(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.tpurt_stepcost(kbvh.node_rows.data_ptr(), kbvh.node_rows.shape[1],
-                            kbvh.tri_rows.data_ptr(), kbvh.tri_rows.shape[1],
+    rc = lib.tpurt_stepcost(card.nodes.data_ptr(), kbvh.node_rows.shape[1], kbvh.arity,
+                            card.leaves.data_ptr(), kbvh.group_size,
                             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
-                            t.data_ptr(), prim.data_ptr(), acc.data_ptr(), n, g, kbvh.arity,
-                            id_base, steps, int(do_box), int(do_extract), int(do_push),
-                            int(do_leaf), stream)
+                            t.data_ptr(), prim.data_ptr(), acc.data_ptr(), n, steps,
+                            int(do_box), int(do_extract), int(do_push), int(do_leaf),
+                            kbvh.depth_bound, err.data_ptr(), stream)
     cudalib.launch_check(rc, "step-cost")
     LAUNCHES["stepcost"] += 1
     return t, prim, acc
