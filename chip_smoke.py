@@ -401,10 +401,11 @@ def main():
                 raise RuntimeError(f"ptxas reported {sorted(info[key])} for {walk}")
         info["k5_ptxas"] = template_resources(
             cudalib.kernel_resources("wide_octet"), "octet_walk",
-            lambda a: f"{('K5 closest', 'K5 occlusion')[a[0]]} masks={a[1]} lane_rays={a[2]}")
+            lambda a: f"{('K5 closest', 'K5 occlusion')[a[0]]} masks={a[1]} "
+                      f"{'one warp per walk' if a[2] > 1 else 'one block per walk'}")
         info["k6_ptxas"] = template_resources(cudalib.kernel_resources("wide_stepcost"),
                                               "wide_stepcost", STEPCOST_TEMPLATES.get)
-        if len(info["k5_ptxas"]) != 4 * len(wide.OCTET_LANE_RAYS) or \
+        if len(info["k5_ptxas"]) != 8 or \
                 sorted(info["k6_ptxas"]) != sorted(STEPCOST_TEMPLATES.values()):
             raise RuntimeError(f"ptxas reported {sorted(info['k5_ptxas'])} for K5 and "
                                f"{sorted(info['k6_ptxas'])} for K6")

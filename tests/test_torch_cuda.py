@@ -543,27 +543,8 @@ def test_octet_kernel_matches_plain_whole_frame(dev, mode, cell_masks):
     cudalib.check_kernel_errors(dev)
     out_p = wide.octet_plain(kb.node_rows, kb.tri_rows, o, d, t_min, t_limit, walks=8,
                              group=kb.group_size, arity=kb.arity, **kw)
-    assert int((out_k[2] != 0).sum()) > 0
-    for a, b in zip(out_k, out_p):
-        assert _bits_equal(a, b)
-
-
-@pytest.mark.parametrize("mode,cell_masks", [("closest", False), ("closest", True),
-                                             ("occlusion", False)])
-def test_octet_warp_per_walk_matches_plain(dev, mode, cell_masks):
-    """K5's one-warp-per-walk launch (4 rays per lane, 8 walks) against
-    octet_plain: t, prim and flag bit-equal, with a ragged last walk."""
-    kb = _masked_bvh(dev)
-    n = 70000
-    o, d = _rays(n, seed=n + 8)
-    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
-    t_min = torch.zeros(n, device=dev)
-    lim = np.where(np.arange(n) % 5 == 0, -3e38, 3.0 if mode == "occlusion" else 1e9)
-    t_limit = torch.from_numpy(lim.astype(np.float32)).to(dev)
-    kw = dict(occlusion=mode == "occlusion", all_definite=False, cell_masks=cell_masks)
-    out_k = wide.octet_cuda(kb, o, d, t_min, t_limit, walks=8, lane_rays=4, **kw)
-    cudalib.check_kernel_errors(dev)
-    out_p = wide.octet_plain(kb.node_rows, kb.tri_rows, o, d, t_min, t_limit, walks=8,
-                             group=kb.group_size, arity=kb.arity, **kw)
+    assert int((out_k[1] >= 0).sum()) > n // 3
+    if mode == "occlusion":
+        assert int((out_k[2] != 0).sum()) > 0
     for a, b in zip(out_k, out_p):
         assert _bits_equal(a, b)

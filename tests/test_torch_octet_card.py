@@ -195,20 +195,22 @@ class _Stack:
 
 
 def _octet_walk(kb, o, d, t_min, t_limit, *, walks, occlusion, all_definite, cell_masks):
-    """K5's walk, one walk at a time. Returns (t, prim, flag, node steps
-    and leaf steps per ray, deepest stack, walks that ended blocked with
-    entries left)."""
+    """K5's walk, one walk at a time, in the kernel's launch: one block
+    per walk at 2 and 4 walks (ray j is thread j, in warp j // 32), one
+    warp per walk at 8 (ray j in lane j % 32). Returns (t, prim, flag,
+    node steps and leaf steps per ray, deepest stack, walks that ended
+    blocked with entries left)."""
     nodes, leaves = kb.card.nodes.numpy(), kb.card.leaves.numpy()
     apply_masks = kb.use_masks and (occlusion or cell_masks)
     a = kb.arity
     rpw = wide.PACKET // walks
-    warps = rpw // 32
+    warps = 1 if walks == 8 else rpw // 32
     n = o.shape[0]
     n_walks = -(-n // rpw)
     out_t, out_p, out_f = np.empty(n, F), np.empty(n, np.int32), np.empty(n, F)
     node_steps, leaf_steps = np.zeros(n, np.int64), np.zeros(n, np.int64)
     deepest, blocked_exits = 0, 0
-    warp_of = np.arange(rpw) // 32  # ray j of a walk is thread j of its block
+    warp_of = np.arange(rpw) // 32 if warps > 1 else np.zeros(rpw, np.int64)
     for w in range(n_walks):
         j = np.arange(w * rpw, min((w + 1) * rpw, n))
         m = j.size

@@ -59,10 +59,14 @@
 //     writes exchange k+1's slot has passed exchange k's barrier, and one
 //     that writes exchange k+2's (the same buffer as k) has passed k+1's,
 //     which every warp reaches only after it has read exchange k.
-//  4. Launch. One block of 1024/N threads per walk, one ray per thread
-//     (LaneRays = 1); at 8 walks also one warp per walk with 4 rays per
-//     lane (LaneRays = 4, four walks to a 128-thread block), whose OR is
-//     one __reduce_or_sync and which takes no barrier at all.
+//  4. Launch. At 2 and 4 walks, one block of 1024/N threads per walk,
+//     one ray per thread (LaneRays = 1). At 8 walks, one warp per walk
+//     with 4 rays per lane (LaneRays = 4, four walks to a 128-thread
+//     block): its OR is one __reduce_or_sync, it takes no barrier at all,
+//     and each lane reuses every loaded word for four rays. On whole
+//     frames of the bench scene it beat one block per walk by 26% on
+//     camera rays, 9% on bounce rays and 15% on shadow rays (PERF.md), so
+//     8 walks take it.
 //
 // Bound. The same f32 work per box and triangle test as K1, times the
 // union: every ray of a walk tests every entry the walk pops, so the walk
@@ -355,15 +359,12 @@ template <bool Occlusion>
 int launch(const void* card_nodes, int n_wide, int arity, const void* card_leaves,
            int group, const void* o, const void* d, const void* t_min, const void* t_limit,
            void* t_out, void* prim_out, void* flag_out, int n, int apply_masks,
-           int all_definite, int walks, int depth_bound, int lane_rays, void* err,
-           void* stream) {
+           int all_definite, int walks, int depth_bound, void* err, void* stream) {
   if (n <= 0) return 0;
   if (walks != 2 && walks != 4 && walks != 8) return (int)cudaErrorInvalidValue;
   if (arity < 1 || arity > 16 || depth_bound < 1) return (int)cudaErrorInvalidValue;
   const int rays_per_walk = 1024 / walks;
-  if (lane_rays == 4 && rays_per_walk != 32 * 4) return (int)cudaErrorInvalidValue;
-  if (lane_rays != 1 && lane_rays != 4) return (int)cudaErrorInvalidValue;
-  auto* fn = lane_rays == 4
+  auto* fn = walks == 8  // one warp per 128-ray walk
                  ? (apply_masks ? &launch_walk<Occlusion, true, 4>
                                 : &launch_walk<Occlusion, false, 4>)
                  : (apply_masks ? &launch_walk<Occlusion, true, 1>
@@ -380,11 +381,11 @@ int tpurt_octet_closest(const void* card_nodes, int n_wide, int arity,
                         const void* card_leaves, int group, const void* o, const void* d,
                         const void* t_min, const void* t_limit, void* t_out,
                         void* prim_out, void* flag_out, int n, int apply_masks,
-                        int all_definite, int walks, int depth_bound, int lane_rays,
-                        void* err, void* stream) {
+                        int all_definite, int walks, int depth_bound, void* err,
+                        void* stream) {
   return launch<false>(card_nodes, n_wide, arity, card_leaves, group, o, d, t_min,
                        t_limit, t_out, prim_out, flag_out, n, apply_masks, all_definite,
-                       walks, depth_bound, lane_rays, err, stream);
+                       walks, depth_bound, err, stream);
 }
 
 int tpurt_octet_occlusion(const void* card_nodes, int n_wide, int arity,
@@ -392,10 +393,10 @@ int tpurt_octet_occlusion(const void* card_nodes, int n_wide, int arity,
                           const void* d, const void* t_min, const void* t_limit,
                           void* t_out, void* prim_out, void* flag_out, int n,
                           int apply_masks, int all_definite, int walks, int depth_bound,
-                          int lane_rays, void* err, void* stream) {
+                          void* err, void* stream) {
   return launch<true>(card_nodes, n_wide, arity, card_leaves, group, o, d, t_min,
                       t_limit, t_out, prim_out, flag_out, n, apply_masks, all_definite,
-                      walks, depth_bound, lane_rays, err, stream);
+                      walks, depth_bound, err, stream);
 }
 
 }  // extern "C"

@@ -103,9 +103,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--octet", type=int, default=0, choices=(0,) + wide.OCTET_WALKS,
                     help="time the multi-walk kernel K5 with N walks per "
                          "1024 rays in place of K1/K2")
-    ap.add_argument("--octet-variants", action="store_true",
-                    help="time K5 at 8 walks with one ray per thread and with "
-                         "one warp per walk (4 rays per lane), and K1/K2, in turns")
     ap.add_argument("--stepcost", type=int, default=0,
                     help="run the step-cost instrument K6 at this many "
                          "steps per ray (e.g. 256)")
@@ -276,25 +273,6 @@ def rope_timings(r: Renderer, b: dict, reps: int) -> dict:
     return out
 
 
-def octet_variants(kbvh: wide.WideKernelBVH, name: str, o, d, t_min, t_limit,
-                   occlusion: bool, all_definite: bool, reps: int) -> dict:
-    """K5 at 8 walks launched both ways (one block per walk, one ray per
-    thread; one warp per walk, 4 rays per lane) and K1/K2, in turns over
-    two passes: each one's median ms per pass."""
-    dev = o.device
-    kw = dict(occlusion=occlusion, all_definite=all_definite, cell_masks=False)
-    fns = {f"{name}_k5_lanes1": lambda: wide.octet_cuda(kbvh, o, d, t_min, t_limit, walks=8,
-                                                          lane_rays=1, **kw),
-           f"{name}_k5_lanes4": lambda: wide.octet_cuda(kbvh, o, d, t_min, t_limit, walks=8,
-                                                          lane_rays=4, **kw),
-           f"{name}_k1_k2": lambda: wide.traverse_cuda(kbvh, o, d, t_min, t_limit, **kw)}
-    out = {k: [] for k in fns}
-    for _ in range(2):
-        for k, fn in fns.items():
-            out[k].append(median_ms(fn, reps, dev))
-    return {f"{k}_ms": v for k, v in out.items()}
-
-
 def median_ms(fn, reps: int, device: torch.device) -> float:
     """Median time of `fn` over `reps` runs after one warm-up: CUDA events
     on the card, the host clock on the CPU."""
@@ -395,9 +373,6 @@ def main(argv=None) -> dict:
                                            occlusion=occlusion, all_definite=not r.has_alpha)
             results[f"{name}_union_bound_ms"] = u_ms
             results[f"{name}_union_bound_by"] = u_by
-        if args.octet_variants:
-            results.update(octet_variants(kbvh, name, o, d, t_min, t_limit, occlusion,
-                                          not r.has_alpha, args.reps))
     if args.rope:
         results.update(rope_timings(r, b, args.reps))
     if args.stepcost:

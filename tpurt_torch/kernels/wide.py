@@ -905,24 +905,19 @@ def traverse_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, occlusion: bool,
 
 
 _OCTET_LIB = "wide_octet"
-_OCTET_ARGTYPES = {name: cudalib.argtypes("piipipppppppiiiiiipp")
+_OCTET_ARGTYPES = {name: cudalib.argtypes("piipipppppppiiiiipp")
                    for name in ("tpurt_octet_closest", "tpurt_octet_occlusion")}
-# K5's launch: one block per walk, one ray per thread (1), or at 8 walks
-# one warp per walk with 4 rays per lane (4)
-OCTET_LANE_RAYS = (1, 4)
 
 
 def octet_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, walks: int, occlusion: bool,
-               all_definite: bool, cell_masks: bool, lane_rays: int = 1):
+               all_definite: bool, cell_masks: bool):
     """Launch K5 (csrc/wide_octet.cu) over the card tables on the current
-    stream: one block per walk of PACKET // walks rays, or with
-    `lane_rays` 4 (8 walks only) one warp per walk. Returns (t, prim,
-    flag) as octet_plain does, bit for bit; a walk past the depth bound
-    surfaces at the next cudalib.check_kernel_errors."""
+    stream: one block per walk of PACKET // walks rays at 2 and 4 walks,
+    one warp per walk at 8. Returns (t, prim, flag) as octet_plain does,
+    bit for bit; a walk past the depth bound surfaces at the next
+    cudalib.check_kernel_errors."""
     if walks not in OCTET_WALKS:
         raise ValueError(f"octet walks must be one of {OCTET_WALKS}, got {walks}")
-    if lane_rays not in OCTET_LANE_RAYS or (lane_rays > 1 and PACKET // walks != 32 * lane_rays):
-        raise ValueError(f"lane_rays {lane_rays} does not fit walks of {PACKET // walks} rays")
     dev = o.device
     n = o.shape[0]
     _check_launch(kbvh, o, d, t_min, t_limit, plain_stack=False)
@@ -939,7 +934,7 @@ def octet_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, walks: int, occlusi
             card.leaves.data_ptr(), kbvh.group_size,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
             t.data_ptr(), prim.data_ptr(), flag.data_ptr(), n,
-            int(apply_masks), int(all_definite), walks, kbvh.depth_bound, lane_rays,
+            int(apply_masks), int(all_definite), walks, kbvh.depth_bound,
             err.data_ptr(), stream)
     cudalib.launch_check(rc, "multi-walk traversal")
     LAUNCHES["octet_occlusion" if occlusion else "octet_closest"] += 1
