@@ -905,12 +905,12 @@ def traverse_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, occlusion: bool,
 
 
 _OCTET_LIB = "wide_octet"
-_OCTET_ARGTYPES = {name: cudalib.argtypes("piipipppppppiiiiipp")
+_OCTET_ARGTYPES = {name: cudalib.argtypes("piipipppppppiiiiiipp")
                    for name in ("tpurt_octet_closest", "tpurt_octet_occlusion")}
 
 
 def octet_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, walks: int, occlusion: bool,
-               all_definite: bool, cell_masks: bool):
+               all_definite: bool, cell_masks: bool, variant: int = -1):
     """Launch K5 (csrc/wide_octet.cu) over the card tables on the current
     stream: one block per walk of PACKET // walks rays at 2 and 4 walks,
     one warp per walk at 8. Returns (t, prim, flag) as octet_plain does,
@@ -934,7 +934,7 @@ def octet_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, walks: int, occlusi
             card.leaves.data_ptr(), kbvh.group_size,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
             t.data_ptr(), prim.data_ptr(), flag.data_ptr(), n,
-            int(apply_masks), int(all_definite), walks, kbvh.depth_bound,
+            int(apply_masks), int(all_definite), walks, kbvh.depth_bound, variant,
             err.data_ptr(), stream)
     cudalib.launch_check(rc, "multi-walk traversal")
     LAUNCHES["octet_occlusion" if occlusion else "octet_closest"] += 1
