@@ -72,7 +72,9 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            waves held against octet_plain, and K5 timed on each in turns with
            K1/K2 on the same rays (whole-frame waves: ns per ray, the
            function's bound from traverse_plain's counts and the union
-           walk's from octet_plain's)
+           walk's from octet_plain's). Each K5 case records its launch
+           (wide.octet_warp_per_walk: the 65,536-ray batches take one block
+           per walk, the whole-frame waves one warp per walk)
   stepcost K6, the step-cost instrument: against stepcost_plain on the bounce
            batch (without cell masks) at the longest K1 walk of the batch,
            in every configuration kernel_bench times, t, prim and acc
@@ -228,17 +230,6 @@ STEPCOST_TEMPLATES = {(1, 1, 1, 1): "full", (1, 1, 1, 0): "-leaf", (1, 1, 0, 0):
                       (1, 0, 0, 0): "-extract", (0, 0, 0, 0): "-box"}
 
 
-def walk_resources(report, walk):
-    """ptxas's report of a traversal source keyed by instantiation of its
-    `walk` template (<Occlusion, Masks>)."""
-    out = {}
-    for name, res in report.items():
-        m = re.search(walk + r"ILb(\d)ELb(\d)E", name)
-        if m:
-            out[f"{WALKS[walk][int(m.group(1))]} masks={m.group(2)}"] = res
-    return out
-
-
 def template_resources(report, template, label):
     """ptxas's report of a source keyed by instantiation of `template`:
     label(args) names the instantiation from its bool and int template
@@ -392,11 +383,10 @@ def main():
         if errors:
             raise RuntimeError("; ".join(errors))
         info.update(times)
-        info["k1_k2_ptxas"] = walk_resources(cudalib.kernel_resources("wide_traverse"),
-                                             "wide_walk")
-        info["k3_k4_ptxas"] = walk_resources(cudalib.kernel_resources("rope_traverse"),
-                                             "rope_walk")
-        for key, walk in (("k1_k2_ptxas", "wide_walk"), ("k3_k4_ptxas", "rope_walk")):
+        for key, source, walk in (("k1_k2_ptxas", "wide_traverse", "wide_walk"),
+                                  ("k3_k4_ptxas", "rope_traverse", "rope_walk")):
+            info[key] = template_resources(cudalib.kernel_resources(source), walk,
+                                           lambda a, ids=WALKS[walk]: f"{ids[a[0]]} masks={a[1]}")
             if len(info[key]) != 4:
                 raise RuntimeError(f"ptxas reported {sorted(info[key])} for {walk}")
         info["k5_ptxas"] = template_resources(
@@ -925,7 +915,8 @@ def main():
             # walk's tests give union_bound_ms, union_ops and union_bytes
             u_ms, _, ops, nbytes = bound(stats, N_RAYS, kb.tri_rows.shape[1], kb.group_size)
             octet_results[f"{name}_{walks}"] = dict(
-                mode=mode, walks=walks, ms=k_ms, k1_ms=k1_ms, plain_ms=p_ms,
+                mode=mode, walks=walks, warp_per_walk=wide.octet_warp_per_walk(N_RAYS, walks),
+                ms=k_ms, k1_ms=k1_ms, plain_ms=p_ms,
                 bound_ms=results[name]["bound_ms"], bound_by=results[name]["bound_by"],
                 union_bound_ms=u_ms, union_ops=ops, union_bytes=nbytes,
                 box_tests_per_ray=float(stats["box_tests"].float().mean()),
@@ -1025,7 +1016,8 @@ def main():
             n = int(args[0].shape[0])
             b_ms, b_by, _, _ = bound(k1_stats, n, kb.tri_rows.shape[1], kb.group_size)
             u_ms, u_by, _, _ = bound(stats, n, kb.tri_rows.shape[1], kb.group_size)
-            main_cases[name] = dict(row, ms=ms, ns_per_ray=ms * 1e6 / n, k1_ms=k1_ms,
+            main_cases[name] = dict(row, warp_per_walk=wide.octet_warp_per_walk(n, kw["walks"]),
+                                    ms=ms, ns_per_ray=ms * 1e6 / n, k1_ms=k1_ms,
                                     k1_ns_per_ray=k1_ms * 1e6 / n, plain_ms=p_ms,
                                     bound_ms=b_ms, bound_by=b_by, union_bound_ms=u_ms,
                                     union_bound_by=u_by)
@@ -1062,8 +1054,8 @@ def main():
             "k1_k2_ms": sum(x["k1_ms"] for x in sel), "union_bound_ms": union_ms,
             "main_path_rays_checked": sum(v["rays"] for v in main_cases.values()),
             "main_path_waves": {m: {k: v[k] for k in (
-                "rays", "ms", "ns_per_ray", "k1_ms", "k1_ns_per_ray", "bound_ms", "bound_by",
-                "union_bound_ms", "plain_ms")} for m, v in main_cases.items()},
+                "rays", "warp_per_walk", "ms", "ns_per_ray", "k1_ms", "k1_ns_per_ray", "bound_ms",
+                "bound_by", "union_bound_ms", "plain_ms")} for m, v in main_cases.items()},
             "ptxas": ptxas["k5_ptxas"]})
 
     with Phase("stepcost") as info:

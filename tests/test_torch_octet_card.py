@@ -194,17 +194,18 @@ class _Stack:
         return e[0], s, leaf
 
 
-def _octet_walk(kb, o, d, t_min, t_limit, *, walks, occlusion, all_definite, cell_masks):
-    """K5's walk, one walk at a time, in the kernel's launch: one block
-    per walk at 2 and 4 walks (ray j is thread j, in warp j // 32), one
-    warp per walk at 8 (ray j in lane j % 32). Returns (t, prim, flag,
-    node steps and leaf steps per ray, deepest stack, walks that ended
-    blocked with entries left)."""
+def _octet_walk(kb, o, d, t_min, t_limit, *, walks, occlusion, all_definite, cell_masks,
+                warp_per_walk=False):
+    """K5's walk, one walk at a time, in either launch: one block per walk
+    (ray j of a walk is thread j, in warp j // 32) or one warp per walk
+    (ray j in lane j % 32). Returns (t, prim, flag, node steps and leaf
+    steps per ray, deepest stack, walks that ended blocked with entries
+    left)."""
     nodes, leaves = kb.card.nodes.numpy(), kb.card.leaves.numpy()
     apply_masks = kb.use_masks and (occlusion or cell_masks)
     a = kb.arity
     rpw = wide.PACKET // walks
-    warps = 1 if walks == 8 else rpw // 32
+    warps = 1 if warp_per_walk else rpw // 32
     n = o.shape[0]
     n_walks = -(-n // rpw)
     out_t, out_p, out_f = np.empty(n, F), np.empty(n, np.int32), np.empty(n, F)
@@ -273,17 +274,21 @@ def _octet_walk(kb, o, d, t_min, t_limit, *, walks, occlusion, all_definite, cel
 
 
 @pytest.mark.parametrize("mode,cell_masks,all_definite", MODES)
-@pytest.mark.parametrize("walks", wide.OCTET_WALKS)
+@pytest.mark.parametrize("walks,warp_per_walk", [(2, False), (4, False), (8, False),
+                                                 (8, True)])
 @pytest.mark.parametrize("name", SCENES)
-def test_octet_walk_matches_plain(scenes, name, walks, mode, cell_masks, all_definite):
-    """K5's walk over the card tables gives octet_plain's t, prim, flag,
-    node steps and leaf steps bit for bit, on two full walks and a ragged
-    third; its deepest stack fits the depth bound."""
+def test_octet_walk_matches_plain(scenes, name, walks, warp_per_walk, mode, cell_masks,
+                                  all_definite):
+    """K5's walk over the card tables, in either launch, gives
+    octet_plain's t, prim, flag, node steps and leaf steps bit for bit, on
+    two full walks and a ragged third; its deepest stack fits the depth
+    bound."""
     kb = scenes[name]
     occlusion = mode == "occlusion"
     rpw = wide.PACKET // walks
     n = 2 * rpw + rpw // 3 + 5
-    seed = 100 * SCENES.index(name) + 10 * walks + MODES.index((mode, cell_masks, all_definite))
+    seed = (100 * SCENES.index(name) + 10 * walks + MODES.index((mode, cell_masks, all_definite))
+            + 1000 * warp_per_walk)
     o, d, t_min, t_limit = _rays(kb, n, seed, occlusion, coherent=rpw)
     kw = dict(occlusion=occlusion, all_definite=all_definite, cell_masks=cell_masks)
     stats = {}
@@ -292,8 +297,8 @@ def test_octet_walk_matches_plain(scenes, name, walks, mode, cell_masks, all_def
                                   torch.from_numpy(t_limit), group=kb.group_size,
                                   arity=kb.arity, walks=walks, stats=stats, **kw)
     with np.errstate(over="ignore"):  # slabs of rays parallel to an axis
-        tr, pr, fr, nv, lv, deepest, exits = _octet_walk(kb, o, d, t_min, t_limit,
-                                                         walks=walks, **kw)
+        tr, pr, fr, nv, lv, deepest, exits = _octet_walk(kb, o, d, t_min, t_limit, walks=walks,
+                                                         warp_per_walk=warp_per_walk, **kw)
     np.testing.assert_array_equal(tr.view(np.int32), tp.numpy().view(np.int32))
     np.testing.assert_array_equal(pr, pp.numpy())
     np.testing.assert_array_equal(fr.view(np.int32), fp.numpy().view(np.int32))
@@ -330,6 +335,21 @@ def test_octet_walk_exits_before_the_first_step():
         np.testing.assert_array_equal(tr.view(np.int32), tp.numpy().view(np.int32))
         assert (nv[128:] == (0 if occlusion else 1)).all() and (lv[128:] == 0).all()
         assert (pr[128:] == -1).all() and (nv[:128] > 1).all()
+
+
+def test_octet_launch_follows_the_walk_count():
+    """K5 takes one warp per walk only at 8 walks and only from
+    OCTET_WARP_WALKS walks up (a ragged last walk counts), one block per
+    walk otherwise."""
+    rpw = wide.PACKET // 8
+    m = wide.OCTET_WARP_WALKS
+    assert wide.octet_warp_per_walk(m * rpw, 8)
+    assert wide.octet_warp_per_walk((m - 1) * rpw + 1, 8)
+    assert not wide.octet_warp_per_walk((m - 1) * rpw, 8)
+    assert not wide.octet_warp_per_walk(65536, 8)
+    assert wide.octet_warp_per_walk(1920 * 1080, 8)
+    for walks in (2, 4):
+        assert not wide.octet_warp_per_walk(1920 * 1080, walks)
 
 
 # ---- K6 -----------------------------------------------------------------------

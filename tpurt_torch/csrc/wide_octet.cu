@@ -59,14 +59,15 @@
 //     writes exchange k+1's slot has passed exchange k's barrier, and one
 //     that writes exchange k+2's (the same buffer as k) has passed k+1's,
 //     which every warp reaches only after it has read exchange k.
-//  4. Launch. At 2 and 4 walks, one block of 1024/N threads per walk,
-//     one ray per thread (LaneRays = 1). At 8 walks, one warp per walk
-//     with 4 rays per lane (LaneRays = 4, four walks to a 128-thread
-//     block): its OR is one __reduce_or_sync, it takes no barrier at all,
-//     and each lane reuses every loaded word for four rays. On whole
-//     frames of the bench scene it beat one block per walk by 26% on
-//     camera rays, 9% on bounce rays and 15% on shadow rays (PERF.md), so
-//     8 walks take it.
+//  4. Launch. One block of 1024/N threads per walk, one ray per thread
+//     (LaneRays = 1); or, at 8 walks, one warp per walk with 4 rays per
+//     lane (LaneRays = 4, four walks to a 128-thread block), whose OR is
+//     one __reduce_or_sync, which takes no barrier and reuses every
+//     loaded word for four rays, but holds 127 registers a thread (16
+//     warps an SM) and a quarter of the warps. The host picks it from the
+//     launch's size (kernels/wide.py::OCTET_WARP_WALKS): on the bench
+//     scene one block per walk was faster up to 3,840 walks and one warp
+//     per walk from 7,680 walks to whole frames (PERF.md).
 //
 // Bound. The same f32 work per box and triangle test as K1, times the
 // union: every ray of a walk tests every entry the walk pops, so the walk
@@ -86,6 +87,7 @@ namespace {
 constexpr int kEnd = INT_MIN;       // the walk is over
 constexpr int kWordsPerChild = 2;   // float4 words per child slot
 constexpr int kWordsPerTri = 3;     // float4 words per triangle
+constexpr int kSlotGroup = 4;       // child slots loaded together
 constexpr int kMaxWarps = 16;       // a 512-ray walk
 constexpr int kWarpBlock = 128;     // threads per block of the warp-per-walk launch
 constexpr float kBig = 3.0e38f;
@@ -153,7 +155,7 @@ __device__ __forceinline__ unsigned walk_or(unsigned bits, unsigned (*slots)[kMa
   return bits;
 }
 
-template <bool Occlusion, bool Masks, int LaneRays, int kSlotGroup>
+template <bool Occlusion, bool Masks, int LaneRays>
 __global__ void __launch_bounds__(LaneRays == 1 ? 512 : kWarpBlock)
 octet_walk(const float4* __restrict__ card_nodes, int n_wide, int arity,
            const float4* __restrict__ card_leaves, int group,
@@ -335,7 +337,7 @@ octet_walk(const float4* __restrict__ card_nodes, int n_wide, int arity,
   }
 }
 
-template <bool Occlusion, bool Masks, int LaneRays, int SlotGroup>
+template <bool Occlusion, bool Masks, int LaneRays>
 int launch_walk(const void* card_nodes, int n_wide, int arity, const void* card_leaves,
                 int group, const void* o, const void* d, const void* t_min,
                 const void* t_limit, void* t_out, void* prim_out, void* flag_out, int n,
@@ -346,7 +348,7 @@ int launch_walk(const void* card_nodes, int n_wide, int arity, const void* card_
   const int walks_per_block = LaneRays == 1 ? 1 : kWarpBlock / 32;
   const int blocks = (n_walks + walks_per_block - 1) / walks_per_block;
   const size_t smem = (size_t)(threads / 32) * depth_bound * sizeof(int2);
-  octet_walk<Occlusion, Masks, LaneRays, SlotGroup><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  octet_walk<Occlusion, Masks, LaneRays><<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const float4*)card_nodes, n_wide, arity, (const float4*)card_leaves, group,
       (const float*)o, (const float*)d, (const float*)t_min, (const float*)t_limit,
       (float*)t_out, (int*)prim_out, (float*)flag_out, n, rays_per_walk, n_walks,
@@ -358,24 +360,18 @@ template <bool Occlusion>
 int launch(const void* card_nodes, int n_wide, int arity, const void* card_leaves,
            int group, const void* o, const void* d, const void* t_min, const void* t_limit,
            void* t_out, void* prim_out, void* flag_out, int n, int apply_masks,
-           int all_definite, int walks, int depth_bound, int variant, void* err,
+           int all_definite, int walks, int depth_bound, int warp_per_walk, void* err,
            void* stream) {
   if (n <= 0) return 0;
   if (walks != 2 && walks != 4 && walks != 8) return (int)cudaErrorInvalidValue;
   if (arity < 1 || arity > 16 || depth_bound < 1) return (int)cudaErrorInvalidValue;
+  // one warp per walk holds 4 rays per lane: 128-ray walks only
+  if (warp_per_walk && walks != 8) return (int)cudaErrorInvalidValue;
   const int rays_per_walk = 1024 / walks;
-  if (variant < 0) variant = walks == 8 ? 0 : 2;
-  if (walks != 8 && variant < 2) return (int)cudaErrorInvalidValue;
-  using Fn = decltype(&launch_walk<Occlusion, true, 4, 4>);
-  // variants: one warp per walk with slot groups of 4 or 1, one block per
-  // walk with slot groups of 4 or 1
-  const Fn table[4][2] = {
-      {&launch_walk<Occlusion, false, 4, 4>, &launch_walk<Occlusion, true, 4, 4>},
-      {&launch_walk<Occlusion, false, 4, 1>, &launch_walk<Occlusion, true, 4, 1>},
-      {&launch_walk<Occlusion, false, 1, 4>, &launch_walk<Occlusion, true, 1, 4>},
-      {&launch_walk<Occlusion, false, 1, 1>, &launch_walk<Occlusion, true, 1, 1>}};
-  if (variant > 3) return (int)cudaErrorInvalidValue;
-  auto* fn = table[variant][apply_masks ? 1 : 0];
+  auto* fn = warp_per_walk ? (apply_masks ? &launch_walk<Occlusion, true, 4>
+                                          : &launch_walk<Occlusion, false, 4>)
+                           : (apply_masks ? &launch_walk<Occlusion, true, 1>
+                                          : &launch_walk<Occlusion, false, 1>);
   return fn(card_nodes, n_wide, arity, card_leaves, group, o, d, t_min, t_limit, t_out,
             prim_out, flag_out, n, rays_per_walk, all_definite, depth_bound, err, stream);
 }
@@ -388,11 +384,11 @@ int tpurt_octet_closest(const void* card_nodes, int n_wide, int arity,
                         const void* card_leaves, int group, const void* o, const void* d,
                         const void* t_min, const void* t_limit, void* t_out,
                         void* prim_out, void* flag_out, int n, int apply_masks,
-                        int all_definite, int walks, int depth_bound, int variant,
+                        int all_definite, int walks, int depth_bound, int warp_per_walk,
                         void* err, void* stream) {
   return launch<false>(card_nodes, n_wide, arity, card_leaves, group, o, d, t_min,
                        t_limit, t_out, prim_out, flag_out, n, apply_masks, all_definite,
-                       walks, depth_bound, variant, err, stream);
+                       walks, depth_bound, warp_per_walk, err, stream);
 }
 
 int tpurt_octet_occlusion(const void* card_nodes, int n_wide, int arity,
@@ -400,10 +396,10 @@ int tpurt_octet_occlusion(const void* card_nodes, int n_wide, int arity,
                           const void* d, const void* t_min, const void* t_limit,
                           void* t_out, void* prim_out, void* flag_out, int n,
                           int apply_masks, int all_definite, int walks, int depth_bound,
-                          int variant, void* err, void* stream) {
+                          int warp_per_walk, void* err, void* stream) {
   return launch<true>(card_nodes, n_wide, arity, card_leaves, group, o, d, t_min,
                       t_limit, t_out, prim_out, flag_out, n, apply_masks, all_definite,
-                      walks, depth_bound, variant, err, stream);
+                      walks, depth_bound, warp_per_walk, err, stream);
 }
 
 }  // extern "C"

@@ -103,8 +103,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--octet", type=int, default=0, choices=(0,) + wide.OCTET_WALKS,
                     help="time the multi-walk kernel K5 with N walks per "
                          "1024 rays in place of K1/K2")
-    ap.add_argument("--octet-variants", action="store_true",
-                    help="time K5 at 8 walks in each of OCTET_VARIANTS, and K1/K2, in turns")
     ap.add_argument("--stepcost", type=int, default=0,
                     help="run the step-cost instrument K6 at this many "
                          "steps per ray (e.g. 256)")
@@ -275,27 +273,6 @@ def rope_timings(r: Renderer, b: dict, reps: int) -> dict:
     return out
 
 
-# K5's launch and register variants at 8 walks (csrc/wide_octet.cu)
-OCTET_VARIANTS = ("warp_slots4", "warp_slots1", "block_slots4", "block_slots1")
-
-
-def octet_variants(kbvh: wide.WideKernelBVH, name: str, o, d, t_min, t_limit,
-                   occlusion: bool, all_definite: bool, reps: int) -> dict:
-    """K5 at 8 walks in each of OCTET_VARIANTS, and K1/K2, in turns over
-    two passes: each one's median ms per pass."""
-    dev = o.device
-    kw = dict(occlusion=occlusion, all_definite=all_definite, cell_masks=False)
-    fns = {f"{name}_k5_{v}": (lambda v=i: wide.octet_cuda(kbvh, o, d, t_min, t_limit, walks=8,
-                                                          variant=v, **kw))
-           for i, v in enumerate(OCTET_VARIANTS)}
-    fns[f"{name}_k1_k2"] = lambda: wide.traverse_cuda(kbvh, o, d, t_min, t_limit, **kw)
-    out = {k: [] for k in fns}
-    for _ in range(2):
-        for k, fn in fns.items():
-            out[k].append(median_ms(fn, reps, dev))
-    return {f"{k}_ms": v for k, v in out.items()}
-
-
 def median_ms(fn, reps: int, device: torch.device) -> float:
     """Median time of `fn` over `reps` runs after one warm-up: CUDA events
     on the card, the host clock on the CPU."""
@@ -391,9 +368,6 @@ def main(argv=None) -> dict:
         results[f"{name}_mrays"] = n / ms / 1e3
         results[f"{name}_bound_ms"] = bound_ms
         results[f"{name}_bound_by"] = bound_by
-        if args.octet_variants:
-            results.update(octet_variants(kbvh, name, o, d, t_min, t_limit, occlusion,
-                                          not r.has_alpha, args.reps))
         if args.octet:
             u_ms, u_by, _, _ = union_bound(kbvh, o, d, t_min, t_limit, walks=args.octet,
                                            occlusion=occlusion, all_definite=not r.has_alpha)

@@ -65,7 +65,7 @@ _LANE = 128
 MAX_STACK = 256
 # K1/K2 and K6 keep their hit-mask entries (8 bytes each) in the dynamic
 # shared memory of a 128-thread block, at most 227 KB (K5 keeps one stack
-# per warp, at most 16 x MAX_DEPTH entries)
+# per warp: at most 16 x MAX_DEPTH entries, 29 KB)
 MAX_DEPTH = 232448 // (128 * 8)
 _BIG = 3.0e38
 
@@ -105,7 +105,7 @@ class WideKernelBVH:
     tri_pos: torch.Tensor    # (T, 3, 3) f32, for the u/v recompute
     arity: int = ARITY
     stack_bound: int = 1     # exact worst-case stack depth of this topology
-    depth_bound: int = 1     # hit-mask entries a K1/K2 walk holds at most
+    depth_bound: int = 1     # hit-mask entries a K1/K2, K5 or K6 walk holds at most
     card: Optional[CardTables] = None  # the kernels' copy of the tables
 
     @property
@@ -907,15 +907,25 @@ def traverse_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, occlusion: bool,
 _OCTET_LIB = "wide_octet"
 _OCTET_ARGTYPES = {name: cudalib.argtypes("piipipppppppiiiiiipp")
                    for name in ("tpurt_octet_closest", "tpurt_octet_occlusion")}
+# K5 at 8 walks launches one warp per walk (4 rays per lane) from this many
+# walks up and one block per walk below: on the bench scene the block
+# launch was faster up to 3,840 walks, the warp launch from 7,680 (PERF.md)
+OCTET_WARP_WALKS = 6144
+
+
+def octet_warp_per_walk(n: int, walks: int) -> bool:
+    """Whether K5 launches one warp per walk for `n` rays in `walks` walks
+    per packet (else one block per walk)."""
+    return walks == 8 and -(-n // (PACKET // walks)) >= OCTET_WARP_WALKS
 
 
 def octet_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, walks: int, occlusion: bool,
-               all_definite: bool, cell_masks: bool, variant: int = -1):
+               all_definite: bool, cell_masks: bool):
     """Launch K5 (csrc/wide_octet.cu) over the card tables on the current
-    stream: one block per walk of PACKET // walks rays at 2 and 4 walks,
-    one warp per walk at 8. Returns (t, prim, flag) as octet_plain does,
-    bit for bit; a walk past the depth bound surfaces at the next
-    cudalib.check_kernel_errors."""
+    stream: one block per walk of PACKET // walks rays, or one warp per
+    walk where octet_warp_per_walk says so. Returns (t, prim, flag) as
+    octet_plain does, bit for bit; a walk past the depth bound surfaces at
+    the next cudalib.check_kernel_errors."""
     if walks not in OCTET_WALKS:
         raise ValueError(f"octet walks must be one of {OCTET_WALKS}, got {walks}")
     dev = o.device
@@ -934,8 +944,8 @@ def octet_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, walks: int, occlusi
             card.leaves.data_ptr(), kbvh.group_size,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
             t.data_ptr(), prim.data_ptr(), flag.data_ptr(), n,
-            int(apply_masks), int(all_definite), walks, kbvh.depth_bound, variant,
-            err.data_ptr(), stream)
+            int(apply_masks), int(all_definite), walks, kbvh.depth_bound,
+            int(octet_warp_per_walk(n, walks)), err.data_ptr(), stream)
     cudalib.launch_check(rc, "multi-walk traversal")
     LAUNCHES["octet_occlusion" if occlusion else "octet_closest"] += 1
     return t, prim, flag
