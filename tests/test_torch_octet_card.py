@@ -24,7 +24,6 @@ bit against the plain versions they must equal:
 Inputs are made with numpy from fixed seeds."""
 
 import functools
-import os
 
 import numpy as np
 import pytest
