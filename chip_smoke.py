@@ -25,7 +25,8 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            against K1 (same cell rejection) and K4 against K2 (tables without
            masks, once with every hit definite and once with none), equal t,
            prim only on ties, blocked equal
-  render   Renderer.render at 1920x1080: 1 warm-up and 2 timed samples,
+  render   Renderer.render at 1920x1080: 1 warm-up and 2 timed samples
+           (each sample's physical ray count kept for `bench`),
            with the kernel launch counters zeroed just before; NaN pixels
            must be 0, the mean radiance > 0; the PNG goes to smoke_out/.
            The warm-up sample keeps the inputs and kernel outputs of the
@@ -34,12 +35,17 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            held against the plain version with the rule of `kernels`, and
            K1/K2 are timed on each (whole-frame waves: ns per ray and the
            bound from the plain version's test counts)
-  trace    torch.profiler (CPU and CUDA activities) over one more sample of
-           the same render: its wall seconds, the device's busy share (the
-           union of the device's kernel, copy and set intervals over the
-           wall time), K1 and K2 launches, device ms and share of the
-           sample, and the ten kernels with the most device time; no K1
-           or K2 in the trace fails the phase
+  trace    utils.profiling.trace (torch.profiler, CPU and CUDA activities,
+           a Chrome trace file) over one more sample of the same render:
+           its wall seconds, the device's busy share (the union of the
+           device's kernel, copy and set intervals over the wall time), K1
+           and K2 launches, device ms and share of the sample, the ten
+           kernels with the most device time, and the host and device ms
+           under each of the integrator's annotations (tpurt's scope names
+           and one wave{k} range per pass of the host wave loop) summed
+           over the sample, with the ranges per sample and the host cost
+           of one range outside the profiler; no K1 or K2 in the trace, or
+           no annotation, fails the phase
   rope     the rope path: Renderer(..., bvh=build_triangle_bvh(tri, 8)) on
            the same scene, camera and lights, 1 warm-up and 2 timed samples
            with every launch counter zeroed just before; K3 must launch, K1,
@@ -88,19 +94,38 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            kernels line is this run's full configuration
   golden   the box golden (64x48, 8 spp) rendered on the card, RMSE against
            tests/goldens/box_64x48_8spp.npz (fail above 1e-3)
+  cli      the user entry point, `python -m tpurt_torch.cli`, as child
+           processes from the repo root, on the same scene file with the
+           bench's camera and lights at 1920x1080: A renders 4 spp with a
+           checkpoint every 2 spp, --save-accum, --validate and
+           --debug-nans; B renders 2 spp into a checkpoint that C resumes
+           to 4 spp; C's accumulation must be A's bit for bit and the PNGs
+           must exist. Then `info` (its triangle count must be the glTF's,
+           215,284, which the device scene pads to the scene phase's
+           215,296), a 2-frame --orbit and a --trace run at 640x480 (the
+           trace file must exist), and `view`, which must exit with 2.
+           Each process's seconds and A's s/sample
+  bench    `python -m tpurt_torch.bench` as a child process with
+           BENCH_SAMPLES=3: its last line must be a final record with
+           samples_done >= 1, value > 0 and rmse_vs_golden < 1e-5, and its
+           physical rays must be the ones Renderer.last_stats counted for
+           the same samples (1..3) in `render` and `trace`; the record is
+           printed on the phase's line
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
 the {"kernels": [...]} line (K1-K6; K1-K3 with their whole-frame waves
 and their share of a traced sample), and last {"ok": true, "device":
 {...}}. A watchdog ends the run with exit code 1, naming the phase it was
-in, after 600 seconds. Needs torch with CUDA, numpy, nvcc and g++; no JAX, no
-Pillow, no prebuilt artefact.
+in, after 600 seconds, and kills a child process it is waiting for. Needs
+torch with CUDA, numpy, nvcc and g++; no JAX, no Pillow, no prebuilt
+artefact.
 """
 
 import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -128,7 +153,7 @@ PHASES = ("do_box", "do_extract", "do_push", "do_leaf")
 # arithmetic and differ only where an exact-t tie picks another triangle
 ROPE_VS_WIDE_RMSE = 1e-5
 
-_state = {"phase": "start"}
+_state = {"phase": "start", "child": None}
 
 
 def emit(obj):
@@ -136,9 +161,33 @@ def emit(obj):
 
 
 def watchdog():
+    child = _state["child"]
+    if child is not None:
+        child.kill()
     emit({"error": "deadline", "phase": _state["phase"], "seconds": DEADLINE_S})
     sys.stdout.flush()
     os._exit(1)
+
+
+def run_entry(argv, env=None, timeout=240):
+    """Run `python -m <argv>` from the repo root as a child process (the
+    watchdog kills it at the deadline); returns (exit code, stdout,
+    stderr, seconds)."""
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT, text=True,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             env=dict(os.environ, PYTHONPATH=ROOT, **(env or {})))
+    _state["child"] = child
+    try:
+        out, err = child.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        out, err = child.communicate()
+        raise RuntimeError(f"{' '.join(argv[:2])} did not end within {timeout} s: "
+                           f"{err[-1500:]}")
+    finally:
+        _state["child"] = None
+    return child.returncode, out, err, round(time.perf_counter() - t0, 3)
 
 
 class Phase:
@@ -156,16 +205,6 @@ class Phase:
             emit({"phase": self.name, "seconds": round(time.perf_counter() - self.t0, 3),
                   **self.info})
         return False
-
-
-def nvidia_smi():
-    try:
-        res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=30)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        return f"nvidia-smi failed: {e}"
-    return res.stdout.strip().splitlines()[0] if res.returncode == 0 and res.stdout else "unknown"
 
 
 def cuda_ms(fn):
@@ -257,36 +296,73 @@ def trace_summary(prof, wall_s, kernels):
     (the union of its kernel, copy and set intervals over the wall time),
     the launches, device ms and share of the sample of each of `kernels`
     (ids of kernel_of), and the ten kernels with the most device time."""
-    from torch.autograd import DeviceType
+    from tpurt_torch.utils.profiling import device_events
 
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = device_events(prof)
     if not events:
         raise RuntimeError("the trace holds no device activity")
-    busy_us, end = 0.0, None
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+    busy_ns, end = 0, None
+    for a, b in sorted((start, start + dur) for _, start, dur in events):
         if end is None or a > end:
-            busy_us += b - a
+            busy_ns += b - a
             end = b
         elif b > end:
-            busy_us += b - end
+            busy_ns += b - end
             end = b
     by_name = {}
-    for e in events:
-        acc = by_name.setdefault(e.name, [0, 0.0])
+    for name, _, dur in events:
+        acc = by_name.setdefault(name, [0, 0])
         acc[0] += 1
-        acc[1] += e.time_range.end - e.time_range.start
-    total_us = sum(v[1] for v in by_name.values())
-    out = {"device_events": len(events), "device_busy_share": busy_us / (wall_s * 1e6),
-           "device_busy_ms": busy_us / 1e3, "device_event_ms": total_us / 1e3}
+        acc[1] += dur
+    total_ns = sum(v[1] for v in by_name.values())
+    out = {"device_events": len(events), "device_busy_share": busy_ns / (wall_s * 1e9),
+           "device_busy_ms": busy_ns / 1e6, "device_event_ms": total_ns / 1e6}
     for k in kernels:
         sel = [v for name, v in by_name.items() if kernel_of(name) == k]
-        ms = sum(v[1] for v in sel) / 1e3
+        ms = sum(v[1] for v in sel) / 1e6
         out[k] = {"launches": sum(v[0] for v in sel), "device_ms": ms,
                   "share_of_sample": ms / (wall_s * 1e3)}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    out["top_kernels"] = [{"name": name[:120], "count": v[0], "device_ms": v[1] / 1e3,
-                           "share_of_device": v[1] / total_us} for name, v in top]
+    out["top_kernels"] = [{"name": name[:120], "count": v[0], "device_ms": v[1] / 1e6,
+                           "share_of_device": v[1] / total_ns} for name, v in top]
     return out
+
+
+def annotation_cost_us(n=20000):
+    """Host microseconds of one empty `annotate` range with no profiler
+    running (the record_function and NVTX calls), median of 5 runs of n."""
+    from tpurt_torch.utils.profiling import annotate
+
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with annotate("cost"):
+                pass
+        runs.append((time.perf_counter() - t0) / n * 1e6)
+    return median(runs)
+
+
+def annotation_table(prof, wall_s):
+    """The trace's annotations: per integrator scope and per wave{k} of
+    the host wave loop, the ranges, host ms and device ms summed over the
+    sample, and the scope with the most host time."""
+    from tpurt_torch.utils.profiling import annotation_split
+
+    split = annotation_split(prof)
+    waves = {k: v for k, v in split.items() if re.fullmatch(r"wave\d+", k)}
+    scopes = {k: v for k, v in split.items() if k not in waves}
+    if not waves or not scopes:
+        raise RuntimeError(f"the trace holds no integrator annotations: {sorted(split)}")
+    ranges = sum(v["count"] for v in split.values())
+    cost_us = annotation_cost_us()
+    return {"ranges_per_sample": ranges, "range_cost_us": cost_us,
+            "ranges_ms_per_sample": ranges * cost_us / 1e3, "scopes": scopes,
+            "waves": dict(sorted(waves.items(), key=lambda kv: int(kv[0][4:]))),
+            "waves_host_ms": sum(v["host_ms"] for v in waves.values()),
+            "waves_device_ms": sum(v["device_ms"] for v in waves.values()),
+            "sample_ms": wall_s * 1e3,
+            "most_host_ms": max(scopes, key=lambda k: scopes[k]["host_ms"])}
 
 
 def timed_kernel(kern):
@@ -322,7 +398,106 @@ def timed_pair(kern, plain):
     return median(k_ms), median(p_ms)
 
 
+def cli_phase(info, scene, triangles, padded, work, platform="cuda", res="1920x1080",
+              small_res="640x480"):
+    """`python -m tpurt_torch.cli` on `scene` with the bench's camera and
+    lights: A renders 4 spp with a checkpoint every 2 (--validate,
+    --debug-nans, --save-accum); B renders 2 spp into another checkpoint
+    and C resumes it to 4: C's accumulation must be A's, bit for bit, and
+    every PNG must exist. Then `info` (its triangle count must be the
+    scene's `triangles`, which the device scene pads to `padded`, a
+    multiple of 128), a 2-frame --orbit, a --trace run whose Chrome trace
+    must exist, and `view`, which must exit with 2. Records each process's
+    seconds and the s/sample A printed."""
+    import numpy as np
+
+    base = ["tpurt_torch.cli", "--platform", platform]
+    look = ["--camera", "{},{},{}:{}:{}".format(*CAMERA[0], *CAMERA[1:])]
+    look += ["--light={},{},{}:{}:{},{},{}:{}".format(*pos, rad, *rgb, power)
+             for pos, rad, rgb, power in LIGHTS]
+    ck_a, ck_b = os.path.join(work, "a.npz"), os.path.join(work, "b.npz")
+    acc_a, acc_c = os.path.join(work, "a_acc.npz"), os.path.join(work, "c_acc.npz")
+    png = {k: os.path.join(OUT_DIR, f"cli_{k}.png") for k in "abc"}
+    runs = {
+        "a": [*base, "render", scene, "--res", res, *look, "--spp", "4", "-o", png["a"],
+              "--checkpoint", ck_a, "--checkpoint-every", "2", "--save-accum", acc_a,
+              "--validate", "--debug-nans"],
+        "b": [*base, "render", scene, "--res", res, *look, "--spp", "2", "-o", png["b"],
+              "--checkpoint", ck_b],
+        "c": [*base, "render", scene, "--res", res, *look, "--spp", "4", "-o", png["c"],
+              "--checkpoint", ck_b, "--save-accum", acc_c],
+        "info": [*base, "info", scene],
+        "orbit": [*base, "render", scene, "--res", small_res, *look, "--spp", "1",
+                  "-o", os.path.join(work, "orbit"), "--orbit", "0,-4,0:3:0.5:2"],
+        "trace": [*base, "render", scene, "--res", small_res, *look, "--spp", "1",
+                  "-o", os.path.join(work, "trace.png"), "--trace",
+                  os.path.join(work, "trace")],
+        "view": [*base, "view", scene],
+    }
+    seconds, outs = {}, {}
+    for name, argv in runs.items():
+        rc, out, err, secs = run_entry(argv)
+        seconds[name], outs[name] = secs, out
+        if rc != (2 if name == "view" else 0):
+            raise RuntimeError(f"cli {name} exited with {rc}: {err[-1500:]}")
+        if name == "view" and "not ported yet" not in err:
+            raise RuntimeError(f"cli view: {err[-500:]}")
+    info.update(process_seconds=seconds)
+    m = re.search(r"\(([0-9.]+) s/sample\)", outs["a"])
+    info["a_seconds_per_sample"] = float(m.group(1)) if m else None
+    if "scene validation: ok" not in outs["a"] or "no non-finite pixels" not in outs["a"]:
+        raise RuntimeError(f"cli a: validation or NaN report missing: {outs['a'][-800:]}")
+    if "resumed at 2 spp" not in outs["c"]:
+        raise RuntimeError(f"cli c did not resume at 2 spp: {outs['c'][-800:]}")
+    a, c = np.load(acc_a), np.load(acc_c)
+    info.update(a_sample_count=int(a["sample_count"]), c_sample_count=int(c["sample_count"]),
+                resumed_bit_equal=a["accum"].tobytes() == c["accum"].tobytes(),
+                resumed_max_abs_diff=float(np.abs(a["accum"] - c["accum"]).max()))
+    if not info["resumed_bit_equal"] or int(a["sample_count"]) != 4 \
+            or int(c["sample_count"]) != 4:
+        raise RuntimeError("the resumed render is not the uninterrupted one: "
+                           f"{info['resumed_max_abs_diff']}")
+    missing = [p for p in png.values() if not os.path.exists(p)]
+    m = re.search(r"triangles:\s+(\d+)", outs["info"])
+    info["info_triangles"] = int(m.group(1)) if m else None
+    frames = sorted(os.listdir(os.path.join(work, "orbit")))
+    traces = [f for f in os.listdir(os.path.join(work, "trace")) if f.endswith(".json")]
+    info.update(orbit_frames=frames, trace_files=traces,
+                pngs=[os.path.relpath(p, ROOT) for p in png.values()])
+    info["device_scene_triangles"] = padded
+    if missing or info["info_triangles"] != triangles or -(-triangles // 128) * 128 != padded or \
+            frames != ["frame_0000.png", "frame_0001.png"] or len(traces) != 1:
+        raise RuntimeError(f"cli outputs: missing {missing}, info triangles "
+                           f"{info['info_triangles']} (scene {triangles}), frames {frames}, "
+                           f"traces {traces}")
+    shutil.rmtree(os.path.join(work, "trace"))
+
+
+def bench_phase(info, sample_physical, env):
+    """`python -m tpurt_torch.bench` with `env`: its last line must be a
+    final record (no `provisional`) with samples_done >= 1, value > 0,
+    rmse_vs_golden < 1e-5 and, for samples 1..samples_done, the physical
+    rays the renderer counted for the same samples (`sample_physical`)."""
+    rc, out, err, secs = run_entry(["tpurt_torch.bench"], env=env)
+    lines = out.strip().splitlines()
+    if rc != 0 or not lines:
+        raise RuntimeError(f"bench exited with {rc}: {err[-1500:]}")
+    rec = json.loads(lines[-1])
+    info.update(process_seconds=secs, env=env, record=rec,
+                card_line=next((x for x in err.splitlines() if "card:" in x), None))
+    done = rec.get("samples_done") or 0
+    want = sum(sample_physical[i] for i in range(1, done + 1)) if done else None
+    info["renderer_physical"] = want
+    if rec.get("provisional") or done < 1 or not rec.get("value", 0) > 0 or \
+            rec.get("rmse_vs_golden") is None or not rec["rmse_vs_golden"] < 1e-5:
+        raise RuntimeError(f"bench record: {rec}")
+    if rec["rays_traced_physical"] != want:
+        raise RuntimeError(f"bench counted {rec['rays_traced_physical']} physical rays in "
+                           f"samples 1..{done}, the renderer {want}")
+
+
 def main():
+    _state["t0"] = time.perf_counter()
     timer = threading.Timer(DEADLINE_S, watchdog)
     timer.daemon = True
     timer.start()
@@ -333,9 +508,10 @@ def main():
         emit({"error": "no CUDA device: torch.cuda.is_available() is false"})
         return 2
     with Phase("device") as info:
-        import tpurt_torch  # noqa: F401  (fails outside a checkout of the repo)
+        # fails outside a checkout of the repo
+        from tpurt_torch.bench import card_name_and_power
 
-        smi = nvidia_smi()
+        smi = card_name_and_power()
         info.update(name=torch.cuda.get_device_name(0), nvidia_smi=smi,
                     torch=torch.__version__, cuda=torch.version.cuda,
                     count=torch.cuda.device_count())
@@ -626,8 +802,11 @@ def main():
         finally:
             wide.traverse_cuda = launch
         r0 = r.rays.physical
+        sample_physical = {}  # sample index -> Renderer.last_stats.physical
         t0 = time.perf_counter()
-        r.render(3)
+        while r.sample_count < 3:
+            r.step()
+            sample_physical[r.sample_count - 1] = r.last_stats.physical
         torch.cuda.synchronize()
         timed = time.perf_counter() - t0
         launches = launch_counts()
@@ -687,13 +866,16 @@ def main():
                                       for m, v in waves.items()}
 
     with Phase("trace") as info:
-        # one more sample of the same render under the profiler
-        from torch.profiler import ProfilerActivity, profile
+        # one more sample of the same render under the profiler, through
+        # utils.profiling.trace (a Chrome trace) and the integrator's
+        # annotations
+        from tpurt_torch.utils import profiling
 
         zero_launch_counts()
         done = r.sample_count
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trace_dir = os.path.join(tmp.name, "trace")
+        with profiling.trace(trace_dir) as prof:
             t0 = time.perf_counter()
             r.step()
             torch.cuda.synchronize()
@@ -701,8 +883,17 @@ def main():
         launches = launch_counts()
         if r.sample_count != done + 1:
             raise RuntimeError(f"the traced step rendered {r.sample_count - done} samples")
+        sample_physical[done] = r.last_stats.physical
+        trace_files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+        if len(trace_files) != 1:
+            raise RuntimeError(f"profiling.trace wrote {trace_files}")
         summary = trace_summary(prof, wall, ("K1", "K2"))
-        info.update(sample_wall_s=wall, launches=launches, **summary)
+        info.update(sample_wall_s=wall, launches=launches,
+                    trace_file_mb=round(os.path.getsize(os.path.join(
+                        trace_dir, trace_files[0])) / 2**20, 1),
+                    annotations=annotation_table(prof, wall), **summary)
+        del prof
+        shutil.rmtree(trace_dir)
         for k, mode in (("K1", "closest"), ("K2", "occlusion")):
             if summary[k]["launches"] == 0:
                 raise RuntimeError(f"the trace of a sample shows no {k} kernel")
@@ -1171,8 +1362,17 @@ def main():
         if not err < 1e-3:
             raise RuntimeError(f"box golden RMSE {err} above 1e-3")
 
+    torch.cuda.empty_cache()  # the entry points below run in processes of their own
+    with Phase("cli") as info:
+        cli_phase(info, path, scene.triangle_count, int(ds.tri_pos.shape[0]), tmp.name)
+
+    with Phase("bench") as info:
+        left = DEADLINE_S - (time.perf_counter() - _state["t0"])
+        bench_phase(info, sample_physical,
+                    {"BENCH_SAMPLES": "3", "BENCH_DEADLINE_S": str(int(min(240, left - 60)))})
+
     tmp.cleanup()
-    print(nvidia_smi(), flush=True)
+    print(card_name_and_power(), flush=True)
     emit({"kernels": kernel_rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

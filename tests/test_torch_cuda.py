@@ -549,3 +549,63 @@ def test_octet_kernel_matches_plain_whole_frame(dev, mode, cell_masks):
         assert int((out_k[1] >= 0).sum()) > n // 3
     for a, b in zip(out_k, out_p):
         assert _bits_equal(a, b)
+
+
+def _box_renderer(box, device, w=32, h=24):
+    return Renderer.from_gltf(box, config=RenderConfig(width=w, height=h, max_samples=4),
+                              camera=Camera.from_angles([1.5, 1.2, 2.0],
+                                                        float(np.arctan2(-1.5, -2.0)), -0.45),
+                              lights=[SphereLight((2.0, 2.0, 2.0), 0.3, (1.0, 0.9, 0.8), 50.0)],
+                              device=device)
+
+
+def test_render_stats_on_the_card_equal_the_cpu_counts(dev, tmp_path):
+    """utils.profiling.render_stats of the box at 32x24 through K1/K2 counts
+    the rays the CPU's plain traversal counts."""
+    from tpurt_torch.utils.profiling import render_stats
+
+    box = write_box_scene(str(tmp_path / "box.gltf"))
+    card, cpu = _box_renderer(box, dev), _box_renderer(box, "cpu")
+    before = wide.LAUNCHES["closest"]
+    for s in (0, 1, 5):
+        got, want = render_stats(card, s), render_stats(cpu, s)
+        for k in ("rays_logical", "rays_physical", "fold_efficiency"):
+            assert got[k] == want[k], (s, k)
+    assert wide.LAUNCHES["closest"] > before
+
+
+def test_checkpoints_cross_between_card_and_cpu(dev, tmp_path):
+    """A checkpoint of a card render resumes on the CPU and one of a CPU
+    render on the card; each resumed render is within the golden bound of
+    the uninterrupted one, and the loaded buffer sits on the renderer's
+    device."""
+    box = write_box_scene(str(tmp_path / "box.gltf"))
+    for first, second in ((dev, "cpu"), ("cpu", dev)):
+        r = _box_renderer(box, first)
+        r.render(2)
+        path = str(tmp_path / f"{torch.device(first).type}.npz")
+        r.save_checkpoint(path)
+        resumed = _box_renderer(box, second)
+        resumed.load_checkpoint(path)
+        assert resumed.accum.device.type == torch.device(second).type
+        assert resumed.camera.position.device.type == torch.device(second).type
+        assert resumed.image().tobytes() == r.image().tobytes()
+        img = resumed.render(4).cpu().numpy()
+        whole = _box_renderer(box, second).render(4).cpu().numpy()
+        assert film.rmse(img, whole) < 1e-5
+
+
+def test_cli_render_on_the_card_writes_its_png(dev, tmp_path):
+    from tpurt_torch import cli
+
+    box = write_box_scene(str(tmp_path / "box.gltf"))
+    out = str(tmp_path / "card.png")
+    acc = str(tmp_path / "acc.npz")
+    phi = float(np.arctan2(-1.5, -2.0))  # the golden's camera, exactly
+    assert cli.main(["--platform", "cuda", "render", box, "--res", "64x48", "--spp", "8",
+                     "--camera", f"1.5,1.2,2.0:{phi!r}:-0.45",
+                     "--light", "2,2,2:0.3:1,0.9,0.8:50",
+                     "-o", out, "--save-accum", acc, "--debug-nans"]) == 0
+    assert os.path.getsize(out) > 0
+    golden = np.load(os.path.join(GOLDEN_DIR, "box_64x48_8spp.npz"))["accum"]
+    assert film.rmse(np.load(acc)["accum"], golden) < 1e-5

@@ -1,7 +1,8 @@
-"""Pinhole camera with frustum-corner ray generation (the counterpart of
-tpurt/camera.py). The arithmetic is written in tpurt's order, one
-elementwise operation at a time, so the CPU rays equal tpurt's to the
-last bit wherever both libraries round the same IEEE operations."""
+"""Pinhole camera with frustum-corner ray generation, and the scripted
+orbit and fly-through paths (the counterpart of tpurt/camera.py). The
+arithmetic is written in tpurt's order, one elementwise operation at a
+time, so the CPU rays equal tpurt's to the last bit wherever both
+libraries round the same IEEE operations."""
 
 from __future__ import annotations
 
@@ -111,3 +112,44 @@ def camera_rays_for_rows(camera: Camera, row_start: int, rows: int, width: int,
     state, jy = rng.next_rand(state)
     o, d = _frustum_rays(camera, pix, jx, jy, width, height, tan_half_fov)
     return o, d, state
+
+
+def orbit_path(center: Sequence[float], radius: float, height: float, num_frames: int):
+    """Scripted orbit: one Camera (on the CPU) per frame, circling
+    `center` at `radius`, `height` above it, looking at it."""
+    cams = []
+    for i in range(num_frames):
+        ang = 2.0 * math.pi * i / max(num_frames, 1)
+        pos = np.array(
+            [
+                center[0] + radius * math.sin(ang),
+                center[1] + height,
+                center[2] + radius * math.cos(ang),
+            ],
+            dtype=np.float32,
+        )
+        look = np.asarray(center, dtype=np.float32) - pos
+        look /= np.linalg.norm(look)
+        phi = math.atan2(look[0], look[2])
+        theta = math.asin(np.clip(look[1], -1.0, 1.0))
+        cams.append(Camera.from_angles(pos, phi, theta))
+    return cams
+
+
+def fly_path(waypoints: Sequence[Sequence[float]], look_at: Sequence[float],
+             frames_per_leg: int):
+    """Piecewise-linear fly-through between waypoints, `frames_per_leg`
+    Cameras (on the CPU) per leg, always looking at `look_at`."""
+    cams = []
+    target = np.asarray(look_at, dtype=np.float32)
+    for a, b in zip(waypoints[:-1], waypoints[1:]):
+        a = np.asarray(a, dtype=np.float32)
+        b = np.asarray(b, dtype=np.float32)
+        for i in range(frames_per_leg):
+            pos = a + (b - a) * (i / max(frames_per_leg, 1))
+            look = target - pos
+            look /= np.linalg.norm(look)
+            phi = math.atan2(look[0], look[2])
+            theta = math.asin(np.clip(look[1], -1.0, 1.0))
+            cams.append(Camera.from_angles(pos, phi, theta))
+    return cams

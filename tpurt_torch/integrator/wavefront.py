@@ -45,6 +45,7 @@ from tpurt_torch.kernels.texture import sample_texture_alpha_quad, sample_textur
 from tpurt_torch.kernels.wide import WideKernelBVH
 from tpurt_torch.scene.device import DeviceScene
 from tpurt_torch.scene.types import NO_TEXTURE
+from tpurt_torch.utils.profiling import annotate
 
 _ENV_PDF = 1.0 / (2.0 * B.PI)
 
@@ -137,24 +138,25 @@ def _trace(scene, bvh, o, d, t_min0, active, include_spheres, cfg: RenderConfig,
     if not has_alpha:
         return hit
     use_pending = pending is not None
-    rej = _alpha_rejected(scene, hit, active, pending)
-    t_min = t_min0
-    for _ in range(cfg.max_alpha_skips):
-        if not bool(rej.any()):
-            break
-        t_min = torch.where(rej, _retrace_tmin(hit.t), t_min)
-        idx = _nz(rej)
-        nh, npend = closest_hit(bvh, scene.lights, o[idx], d[idx],
-                                t_min[idx], cfg.t_max, include_spheres=include_spheres,
-                                active=torch.ones_like(idx, dtype=torch.bool),
-                                sort_rays=sort_rays, return_pending=True,
-                                policy=cfg.kernel)
-        hit = _hit_scatter(hit, idx, nh)
-        pend_full = None
-        if use_pending:
-            pend_full = torch.zeros_like(rej)
-            pend_full[idx] = npend
-        rej = _alpha_rejected(scene, hit, rej, (rej & pend_full) if use_pending else None)
+    with annotate("alpha_retrace"):
+        rej = _alpha_rejected(scene, hit, active, pending)
+        t_min = t_min0
+        for _ in range(cfg.max_alpha_skips):
+            if not bool(rej.any()):
+                break
+            t_min = torch.where(rej, _retrace_tmin(hit.t), t_min)
+            idx = _nz(rej)
+            nh, npend = closest_hit(bvh, scene.lights, o[idx], d[idx],
+                                    t_min[idx], cfg.t_max, include_spheres=include_spheres,
+                                    active=torch.ones_like(idx, dtype=torch.bool),
+                                    sort_rays=sort_rays, return_pending=True,
+                                    policy=cfg.kernel)
+            hit = _hit_scatter(hit, idx, nh)
+            pend_full = None
+            if use_pending:
+                pend_full = torch.zeros_like(rej)
+                pend_full[idx] = npend
+            rej = _alpha_rejected(scene, hit, rej, (rej & pend_full) if use_pending else None)
     return hit
 
 
@@ -171,8 +173,9 @@ def _trace_shadow(scene, bvh, o, d, active, throughput, cfg: RenderConfig,
     t_min0 = torch.zeros(n, dtype=torch.float32, device=dev)
     t_max = float(np.float32(cfg.t_max))
     if scene.lights.shape[0] > 0:
-        s_hit, s_t, s_id = intersect_spheres(o, d, scene.lights, t_min0, t_max)
-        s_hit = s_hit & active
+        with annotate("shadow_spheres"):
+            s_hit, s_t, s_id = intersect_spheres(o, d, scene.lights, t_min0, t_max)
+            s_hit = s_hit & active
     else:
         s_hit = torch.zeros(n, dtype=torch.bool, device=dev)
         s_t = torch.full((n,), t_max, dtype=torch.float32, device=dev)
@@ -184,30 +187,31 @@ def _trace_shadow(scene, bvh, o, d, active, throughput, cfg: RenderConfig,
         blocked, hit = occlusion_hit(bvh, o, d, t_min0, t_limit, active, has_alpha,
                                      ray_class=ray_class, policy=cfg.kernel)
         if has_alpha:
-            unc = active & ~blocked & (hit.prim >= 0)
-            # with mask columns, the kernel's uncertain lanes are exactly the
-            # alpha-testable undecided-cell hits: `unc` doubles as pending
-            kernel_masks = bvh.use_masks
-            rej = _alpha_rejected(scene, hit, unc, unc if kernel_masks else None)
-            blocked = blocked | (unc & ~rej)
-            t_min = t_min0
-            for _ in range(cfg.max_alpha_skips):
-                if not bool(rej.any()):
-                    break
-                t_min = torch.where(rej, _retrace_tmin(hit.t), t_min)
-                idx = _nz(rej)
-                b_c, h_c = occlusion_hit(bvh, o[idx], d[idx], t_min[idx], t_limit[idx],
-                                         torch.ones_like(idx, dtype=torch.bool), has_alpha,
-                                         policy=cfg.kernel)
-                b2 = torch.zeros_like(rej)
-                b2[idx] = b_c
-                hit = _hit_scatter(hit, idx, h_c)
-                unc2 = rej & ~b2 & (hit.prim >= 0)
-                rej2 = _alpha_rejected(scene, hit, unc2, unc2 if kernel_masks else None)
-                blocked = blocked | (rej & b2) | (unc2 & ~rej2)
-                rej = rej2
-            # re-trace cap reached: the rejected hit stays a surface (black)
-            blocked = blocked | rej
+            with annotate("occl_recheck"):
+                unc = active & ~blocked & (hit.prim >= 0)
+                # with mask columns, the kernel's uncertain lanes are exactly the
+                # alpha-testable undecided-cell hits: `unc` doubles as pending
+                kernel_masks = bvh.use_masks
+                rej = _alpha_rejected(scene, hit, unc, unc if kernel_masks else None)
+                blocked = blocked | (unc & ~rej)
+                t_min = t_min0
+                for _ in range(cfg.max_alpha_skips):
+                    if not bool(rej.any()):
+                        break
+                    t_min = torch.where(rej, _retrace_tmin(hit.t), t_min)
+                    idx = _nz(rej)
+                    b_c, h_c = occlusion_hit(bvh, o[idx], d[idx], t_min[idx], t_limit[idx],
+                                             torch.ones_like(idx, dtype=torch.bool),
+                                             has_alpha, policy=cfg.kernel)
+                    b2 = torch.zeros_like(rej)
+                    b2[idx] = b_c
+                    hit = _hit_scatter(hit, idx, h_c)
+                    unc2 = rej & ~b2 & (hit.prim >= 0)
+                    rej2 = _alpha_rejected(scene, hit, unc2, unc2 if kernel_masks else None)
+                    blocked = blocked | (rej & b2) | (unc2 & ~rej2)
+                    rej = rej2
+                # re-trace cap reached: the rejected hit stays a surface (black)
+                blocked = blocked | rej
     else:
         # the rope path (tpurt:486-490): a full closest-hit trace with the
         # alpha re-trace; <= commits a surface tied with the sphere, as the
@@ -216,20 +220,21 @@ def _trace_shadow(scene, bvh, o, d, active, throughput, cfg: RenderConfig,
                      sort_rays=False)
         blocked = active & (hit.kind == KIND_TRIANGLE) & (hit.t <= t_limit)
 
-    sky = torch.tensor(cfg.sky_color, dtype=torch.float32, device=dev)
-    if scene.lights.shape[0] > 0:
-        light = scene.lights[torch.clamp(s_id, 0, scene.lights.shape[0] - 1).long()]
-        light_rgb = light[:, 4:7] * light[:, 7:8] * throughput[:, None]
-    else:
-        light_rgb = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    sky_rgb = sky[None, :] * throughput[:, None]
-    hit_sphere = s_hit & ~blocked
-    is_miss = active & ~blocked & ~s_hit
-    rgb = torch.where(blocked[:, None], torch.zeros_like(sky_rgb),
-                      torch.where(hit_sphere[:, None], light_rgb, sky_rgb))
-    a = torch.where(blocked, torch.ones_like(t_limit),
-                    torch.where(hit_sphere, torch.zeros_like(t_limit),
-                                torch.full_like(t_limit, -4.0)))
+    with annotate("shadow_payload"):
+        sky = torch.tensor(cfg.sky_color, dtype=torch.float32, device=dev)
+        if scene.lights.shape[0] > 0:
+            light = scene.lights[torch.clamp(s_id, 0, scene.lights.shape[0] - 1).long()]
+            light_rgb = light[:, 4:7] * light[:, 7:8] * throughput[:, None]
+        else:
+            light_rgb = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        sky_rgb = sky[None, :] * throughput[:, None]
+        hit_sphere = s_hit & ~blocked
+        is_miss = active & ~blocked & ~s_hit
+        rgb = torch.where(blocked[:, None], torch.zeros_like(sky_rgb),
+                          torch.where(hit_sphere[:, None], light_rgb, sky_rgb))
+        a = torch.where(blocked, torch.ones_like(t_limit),
+                        torch.where(hit_sphere, torch.zeros_like(t_limit),
+                                    torch.full_like(t_limit, -4.0)))
     return rgb, a, is_miss
 
 
@@ -256,57 +261,60 @@ def _unit(v):
 def shade_hit(scene: DeviceScene, cfg: RenderConfig, tex_flags, o, d, hit: Hit) -> Shade:
     """Hit-attribute interpolation + material/texture evaluation from the
     fused (T, 40) shading row (see scene/device.py)."""
-    prim = torch.clamp(hit.prim, 0, scene.tri_pos.shape[0] - 1).long()
-    srow = scene.tri_shade_row[prim]
-    w0 = 1.0 - hit.u - hit.v
-    uv = _bary(w0, hit.u, hit.v, srow[:, 0:6].reshape(-1, 3, 2))
-    normal = _unit(_bary(w0, hit.u, hit.v, srow[:, 6:15].reshape(-1, 3, 3)))
-    if tex_flags[2]:
-        tangent4 = _bary(w0, hit.u, hit.v, srow[:, 15:27].reshape(-1, 3, 4))
-        tangent = _unit(tangent4[:, :3])
-    hit_point = o + hit.t[:, None] * d
-    mat_emissive = srow[:, 32:35]
+    with annotate("shade_attrs"):
+        prim = torch.clamp(hit.prim, 0, scene.tri_pos.shape[0] - 1).long()
+        srow = scene.tri_shade_row[prim]
+        w0 = 1.0 - hit.u - hit.v
+        uv = _bary(w0, hit.u, hit.v, srow[:, 0:6].reshape(-1, 3, 2))
+        normal = _unit(_bary(w0, hit.u, hit.v, srow[:, 6:15].reshape(-1, 3, 3)))
+        if tex_flags[2]:
+            tangent4 = _bary(w0, hit.u, hit.v, srow[:, 15:27].reshape(-1, 3, 4))
+            tangent = _unit(tangent4[:, :3])
+        hit_point = o + hit.t[:, None] * d
+        mat_emissive = srow[:, 32:35]
 
-    albedo = srow[:, 27:30]
-    if tex_flags[0]:
-        tex_a = srow[:, 35].to(torch.int32)
-        texel_a = sample_texture_quad(scene.atlas_quad, scene.tex_table, tex_a,
-                                      uv[:, 0], uv[:, 1])
-        albedo = torch.where((tex_a != NO_TEXTURE)[:, None], albedo * texel_a[:, :3], albedo)
+    with annotate("textures"):
+        albedo = srow[:, 27:30]
+        if tex_flags[0]:
+            tex_a = srow[:, 35].to(torch.int32)
+            texel_a = sample_texture_quad(scene.atlas_quad, scene.tex_table, tex_a,
+                                          uv[:, 0], uv[:, 1])
+            albedo = torch.where((tex_a != NO_TEXTURE)[:, None], albedo * texel_a[:, :3], albedo)
 
-    shading_n = normal
-    if tex_flags[2]:
-        tex_n = srow[:, 37].to(torch.int32)
-        nf = srow[:, 31]
-        texel_n = sample_texture_quad(scene.atlas_quad, scene.tex_table, tex_n,
-                                      uv[:, 0], uv[:, 1])
-        nm = (texel_n[:, :3] * 2.0 - 1.0) * nf[:, None]
-        bitangent = B._cross(normal, tangent) * tangent4[:, 3:4]
-        mapped = nm[:, 0:1] * tangent + nm[:, 1:2] * bitangent + nm[:, 2:3] * normal
-        mapped = _unit(mapped)
-        use_nm = (tex_n != NO_TEXTURE) & (torch.abs(nf) > 0.001)
-        shading_n = torch.where(use_nm[:, None], mapped, normal)
+        shading_n = normal
+        if tex_flags[2]:
+            tex_n = srow[:, 37].to(torch.int32)
+            nf = srow[:, 31]
+            texel_n = sample_texture_quad(scene.atlas_quad, scene.tex_table, tex_n,
+                                          uv[:, 0], uv[:, 1])
+            nm = (texel_n[:, :3] * 2.0 - 1.0) * nf[:, None]
+            bitangent = B._cross(normal, tangent) * tangent4[:, 3:4]
+            mapped = nm[:, 0:1] * tangent + nm[:, 1:2] * bitangent + nm[:, 2:3] * normal
+            mapped = _unit(mapped)
+            use_nm = (tex_n != NO_TEXTURE) & (torch.abs(nf) > 0.001)
+            shading_n = torch.where(use_nm[:, None], mapped, normal)
 
-    emissive = mat_emissive * float(np.float32(cfg.emissive_untextured_scale))
-    if tex_flags[3]:
-        tex_e = srow[:, 38].to(torch.int32)
-        texel_e = sample_texture_quad(scene.atlas_quad, scene.tex_table, tex_e,
-                                      uv[:, 0], uv[:, 1])
-        emissive = torch.where((tex_e != NO_TEXTURE)[:, None],
-                               texel_e[:, :3] * mat_emissive, emissive)
+        emissive = mat_emissive * float(np.float32(cfg.emissive_untextured_scale))
+        if tex_flags[3]:
+            tex_e = srow[:, 38].to(torch.int32)
+            texel_e = sample_texture_quad(scene.atlas_quad, scene.tex_table, tex_e,
+                                          uv[:, 0], uv[:, 1])
+            emissive = torch.where((tex_e != NO_TEXTURE)[:, None],
+                                   texel_e[:, :3] * mat_emissive, emissive)
 
-    roughness = srow[:, 30]
-    if tex_flags[1]:
-        tex_mr = srow[:, 36].to(torch.int32)
-        texel_mr = sample_texture_quad(scene.atlas_quad, scene.tex_table, tex_mr,
-                                       uv[:, 0], uv[:, 1])
-        roughness = roughness * torch.where(tex_mr != NO_TEXTURE, texel_mr[:, 1],
-                                            torch.ones_like(roughness))
-    alpha = B.roughness_to_alpha(roughness)
+        roughness = srow[:, 30]
+        if tex_flags[1]:
+            tex_mr = srow[:, 36].to(torch.int32)
+            texel_mr = sample_texture_quad(scene.atlas_quad, scene.tex_table, tex_mr,
+                                           uv[:, 0], uv[:, 1])
+            roughness = roughness * torch.where(tex_mr != NO_TEXTURE, texel_mr[:, 1],
+                                                torch.ones_like(roughness))
+        alpha = B.roughness_to_alpha(roughness)
     return Shade(hit_point=hit_point, shading_n=shading_n, albedo=albedo,
                  emissive=emissive, alpha=alpha)
 
 
+@annotate("nee_sample")
 def nee_directions(scene: DeviceScene, cfg: RenderConfig, state, sp: Shade, d):
     """Both NEE directions of a hit, in the reference's RNG draw order
     (u_pick, u1, u2, the dead light-index draw, u3, u4).
@@ -369,6 +377,7 @@ def _nee1(scene, cfg, sp: Shade, wo, dir1, pick_env, lt, rgb1, a1):
     return torch.where(pick_env[:, None], contrib_env, contrib_light)
 
 
+@annotate("mis_weights")
 def mis_contributions(scene, cfg, sp: Shade, wo, dir1, dir2, pick_env, lt, al_b,
                       rgb1, rgb2, a1, a2):
     """Both NEE samples' MIS contributions (the exact two-ray estimator),
@@ -385,6 +394,7 @@ def mis_contributions(scene, cfg, sp: Shade, wo, dir1, dir2, pick_env, lt, al_b,
     return (nee1 + nee2) * float(nl + 1)
 
 
+@annotate("mis_weights")
 def mis_light_contribution(scene, cfg, sp: Shade, wo, dir1, pick_env, lt, rgb1, a1):
     """Sample-1-only MIS term of the folded estimator, scaled by nl + 1."""
     nl = scene.lights.shape[0]
@@ -408,6 +418,7 @@ def fold_mis_weight(sp: Shade, wo, bounce_dir, al_b):
     return w * ratio
 
 
+@annotate("bounce")
 def bounce_sample(cfg: RenderConfig, state, sp: Shade, wo, d, throughput):
     """Bounce direction + Russian roulette. Returns (state, bounce_dir,
     t_new, killed, offset)."""
@@ -459,17 +470,19 @@ def trace_paths(scene: DeviceScene, bvh, o, d, state, *, cfg: RenderConfig,
         state_s, bounce_dir, t_new, killed, offset = bounce_sample(
             cfg, state_s, sp, wo, d_s, thr_s)
         if fold:
-            rgb1, a1, miss1 = _trace_shadow(scene, bvh, nee_o, dir1, tri_s, thr_s,
-                                            cfg, has_alpha,
-                                            ray_class=pick_env.to(torch.int32))
+            with annotate("trace_shadow"):
+                rgb1, a1, miss1 = _trace_shadow(scene, bvh, nee_o, dir1, tri_s, thr_s,
+                                                cfg, has_alpha,
+                                                ray_class=pick_env.to(torch.int32))
             miss_inc = miss1.to(torch.int32)
             local_l = sp.emissive + mis_light_contribution(
                 scene, cfg, sp, wo, dir1, pick_env, lt, rgb1, a1)
             fold_w = fold_mis_weight(sp, wo, bounce_dir, al_b) * float(nl + 1) * thr_s
         else:
-            rgb12, a12, miss12 = _trace_shadow(
-                scene, bvh, torch.cat([nee_o, nee_o]), torch.cat([dir1, dir2]),
-                torch.cat([tri_s, tri_s]), torch.cat([thr_s, thr_s]), cfg, has_alpha)
+            with annotate("trace_shadow"):
+                rgb12, a12, miss12 = _trace_shadow(
+                    scene, bvh, torch.cat([nee_o, nee_o]), torch.cat([dir1, dir2]),
+                    torch.cat([tri_s, tri_s]), torch.cat([thr_s, thr_s]), cfg, has_alpha)
             miss_inc = miss12[:m].to(torch.int32) + miss12[m:].to(torch.int32)
             local_l = sp.emissive + mis_contributions(
                 scene, cfg, sp, wo, dir1, dir2, pick_env, lt, al_b,
@@ -480,65 +493,70 @@ def trace_paths(scene: DeviceScene, bvh, o, d, state, *, cfg: RenderConfig,
 
     wave_idx = 0
     while True:
-        pending = (mis_coeff != 0.0).any(dim=-1)
-        trace_act = active | pending
-        ti = _nz(trace_act)
-        if ti.numel() == 0:
-            break
-        # trace the live lanes only; the rest keep tpurt's inactive-ray
-        # result (a miss at t_max)
-        hit_c = _trace(scene, bvh, o[ti], d[ti],
-                       torch.zeros(ti.numel(), dtype=torch.float32, device=dev),
-                       torch.ones(ti.numel(), dtype=torch.bool, device=dev),
-                       wave_idx > 0, cfg, has_alpha,
-                       sort_rays=wave_idx > 0 or cfg.kernel.sort_wave0)
-        hit = _hit_scatter(_miss_hit(n, cfg.t_max, dev), ti, hit_c)
+        with annotate(f"wave{wave_idx}"):
+            pending = (mis_coeff != 0.0).any(dim=-1)
+            trace_act = active | pending
+            ti = _nz(trace_act)
+            if ti.numel() == 0:
+                break
+            # trace the live lanes only; the rest keep tpurt's inactive-ray
+            # result (a miss at t_max)
+            with annotate("trace_closest"):
+                hit_c = _trace(scene, bvh, o[ti], d[ti],
+                               torch.zeros(ti.numel(), dtype=torch.float32, device=dev),
+                               torch.ones(ti.numel(), dtype=torch.bool, device=dev),
+                               wave_idx > 0, cfg, has_alpha,
+                               sort_rays=wave_idx > 0 or cfg.kernel.sort_wave0)
+            hit = _hit_scatter(_miss_hit(n, cfg.t_max, dev), ti, hit_c)
 
-        is_tri = active & (hit.kind == KIND_TRIANGLE)
-        n_tri = int(is_tri.sum())
-        logical += int(active.sum()) + 2 * n_tri
-        physical += ti.numel() + (1 if fold else 2) * n_tri
-        is_miss = active & (hit.kind == KIND_MISS)
-        zero3 = torch.zeros_like(radiance)
-        if fold:
-            esc = pending & (hit.kind == KIND_MISS)
-            radiance = radiance + torch.where(esc[:, None], mis_coeff * sky[None, :], zero3)
-        if wave_idx == 0:
-            radiance = radiance + torch.where(is_miss[:, None],
-                                              sky[None, :] * throughput[:, None], zero3)
+            is_tri = active & (hit.kind == KIND_TRIANGLE)
+            n_tri = int(is_tri.sum())
+            logical += int(active.sum()) + 2 * n_tri
+            physical += ti.numel() + (1 if fold else 2) * n_tri
+            is_miss = active & (hit.kind == KIND_MISS)
+            zero3 = torch.zeros_like(radiance)
+            if fold:
+                esc = pending & (hit.kind == KIND_MISS)
+                radiance = radiance + torch.where(esc[:, None], mis_coeff * sky[None, :], zero3)
+            if wave_idx == 0:
+                radiance = radiance + torch.where(is_miss[:, None],
+                                                  sky[None, :] * throughput[:, None], zero3)
 
-        si = _nz(is_tri)
-        hit_s = Hit(*(x[si] for x in hit))
-        outs = shade_nee(o[si], d[si], state[si], throughput[si], hit_s)
-        (st_c, mi_c, ll_c, bd_c, tn_c, kl_c, no_c, al_c, fw_c) = outs
-        # lanes left out of the shade block are terminated: their rng state
-        # is never read again, and every other output is masked below
-        state = _scatter(state, si, st_c)
-        miss_inc = _scatter(torch.zeros_like(depth), si, mi_c)
-        local_l = _scatter(zero3, si, ll_c)
-        bounce_dir = _scatter(zero3, si, bd_c)
-        t_new = _scatter(torch.zeros_like(throughput), si, tn_c)
-        killed = _scatter(torch.zeros_like(active), si, kl_c)
-        new_o = _scatter(zero3, si, no_c)
-        sh_albedo = _scatter(zero3, si, al_c)
-        fold_w = _scatter(torch.zeros_like(throughput), si, fw_c)
+            si = _nz(is_tri)
+            hit_s = Hit(*(x[si] for x in hit))
+            outs = shade_nee(o[si], d[si], state[si], throughput[si], hit_s)
+            (st_c, mi_c, ll_c, bd_c, tn_c, kl_c, no_c, al_c, fw_c) = outs
+            # lanes left out of the shade block are terminated: their rng state
+            # is never read again, and every other output is masked below
+            state = _scatter(state, si, st_c)
+            miss_inc = _scatter(torch.zeros_like(depth), si, mi_c)
+            local_l = _scatter(zero3, si, ll_c)
+            bounce_dir = _scatter(zero3, si, bd_c)
+            t_new = _scatter(torch.zeros_like(throughput), si, tn_c)
+            killed = _scatter(torch.zeros_like(active), si, kl_c)
+            new_o = _scatter(zero3, si, no_c)
+            sh_albedo = _scatter(zero3, si, al_c)
+            fold_w = _scatter(torch.zeros_like(throughput), si, fw_c)
 
-        depth = depth + miss_inc
-        can_bounce = depth < cfg.max_depth
-        depth = depth + is_tri.to(torch.int32)
+            depth = depth + miss_inc
+            can_bounce = depth < cfg.max_depth
+            depth = depth + is_tri.to(torch.int32)
 
-        dead_by_rr = is_tri & can_bounce & killed
-        add = is_tri & ~dead_by_rr
-        radiance = radiance + torch.where(add[:, None], albedo_prod * sh_albedo * local_l, zero3)
-        mis_coeff = torch.where(add[:, None], albedo_prod * sh_albedo * fold_w[:, None], zero3)
-        cont = is_tri & can_bounce & ~killed
-        upd = (cont | add) if fold else cont
-        o = torch.where(upd[:, None], new_o, o)
-        d = torch.where(upd[:, None], bounce_dir, d)
-        albedo_prod = torch.where(cont[:, None], albedo_prod * sh_albedo, albedo_prod)
-        throughput = torch.where(cont, t_new, throughput)
-        active = cont
-        wave_idx += 1
+            with annotate("bounce_resolve"):
+                dead_by_rr = is_tri & can_bounce & killed
+                add = is_tri & ~dead_by_rr
+                radiance = radiance + torch.where(add[:, None],
+                                                  albedo_prod * sh_albedo * local_l, zero3)
+                mis_coeff = torch.where(add[:, None],
+                                        albedo_prod * sh_albedo * fold_w[:, None], zero3)
+                cont = is_tri & can_bounce & ~killed
+                upd = (cont | add) if fold else cont
+                o = torch.where(upd[:, None], new_o, o)
+                d = torch.where(upd[:, None], bounce_dir, d)
+                albedo_prod = torch.where(cont[:, None], albedo_prod * sh_albedo, albedo_prod)
+                throughput = torch.where(cont, t_new, throughput)
+                active = cont
+            wave_idx += 1
 
     if return_stats:
         return radiance, RayStats(logical=float(logical), physical=float(physical))
@@ -582,12 +600,14 @@ def tile_unpack(x, spp: int, rows: int, width: int, th: int, tw: int):
     return x.reshape(spp * rows * width, *tail)
 
 
-def render_rows(scene: DeviceScene, bvh, camera: Camera, sample_index: int,
-                row_start: int, *, rows: int, width: int, height: int,
-                cfg: RenderConfig, has_alpha: bool,
-                tex_flags=(True, True, True, True), return_stats: bool = False):
-    """One progressive sample for a band of `rows` image rows. Returns
-    (rows, width, 4) radiance (and RayStats with `return_stats`)."""
+def render_rows_stats(scene: DeviceScene, bvh, camera: Camera, sample_index: int,
+                      row_start: int, *, rows: int, width: int, height: int,
+                      cfg: RenderConfig, has_alpha: bool,
+                      tex_flags=(True, True, True, True)):
+    """One progressive sample for a band of `rows` image rows, with its
+    traced-ray counts. With cfg.spp_per_launch = k > 1, `sample_index`
+    counts launches and the result is the mean of k samples. Returns
+    ((rows, width, 4) radiance, RayStats)."""
     spp = cfg.spp_per_launch
     dev = scene.tri_pos.device
     o, d, state = camera_rays_for_rows(camera, row_start, rows, width, height,
@@ -606,6 +626,41 @@ def render_rows(scene: DeviceScene, bvh, camera: Camera, sample_index: int,
         radiance = radiance.reshape(spp, n, 3).mean(dim=0)
     img = torch.cat([radiance, torch.ones((n, 1), dtype=torch.float32, device=dev)],
                     dim=-1).reshape(rows, width, 4)
+    return img, stats
+
+
+def render_sample_stats(scene: DeviceScene, bvh, camera: Camera, sample_index: int, *,
+                        width: int, height: int, cfg: RenderConfig, has_alpha: bool,
+                        chunk_rows: int = 0, tex_flags=(True, True, True, True)):
+    """One progressive sample with its traced-ray counts: ((H, W, 4)
+    radiance, RayStats), rendered in row bands of `chunk_rows` when that
+    is > 0 (bounds the wave state memory). The bands' counts are summed
+    in host doubles, as tpurt sums them. RayStats.physical is the Mrays/s
+    numerator, .logical the reference-equivalent work (trace_paths)."""
+    if chunk_rows <= 0 or chunk_rows >= height:
+        bands = [(0, height)]
+    else:
+        bands = [(r, min(chunk_rows, height - r)) for r in range(0, height, chunk_rows)]
+    imgs, total = [], np.zeros(2, np.float64)
+    for row, rows in bands:
+        img, st = render_rows_stats(scene, bvh, camera, sample_index, row, rows=rows,
+                                    width=width, height=height, cfg=cfg,
+                                    has_alpha=has_alpha, tex_flags=tex_flags)
+        imgs.append(img)
+        total += (st.logical, st.physical)
+    return torch.cat(imgs, dim=0), RayStats(logical=float(total[0]), physical=float(total[1]))
+
+
+def render_rows(scene: DeviceScene, bvh, camera: Camera, sample_index: int,
+                row_start: int, *, rows: int, width: int, height: int,
+                cfg: RenderConfig, has_alpha: bool,
+                tex_flags=(True, True, True, True), return_stats: bool = False):
+    """One progressive sample for a band of `rows` image rows: (rows,
+    width, 4) radiance (and RayStats with `return_stats`, as
+    render_rows_stats)."""
+    img, stats = render_rows_stats(scene, bvh, camera, sample_index, row_start, rows=rows,
+                                   width=width, height=height, cfg=cfg,
+                                   has_alpha=has_alpha, tex_flags=tex_flags)
     return (img, stats) if return_stats else img
 
 
@@ -613,21 +668,9 @@ def render_sample(scene: DeviceScene, bvh, camera: Camera, sample_index: int, *,
                   width: int, height: int, cfg: RenderConfig, has_alpha: bool,
                   chunk_rows: int = 0, tex_flags=(True, True, True, True),
                   return_stats: bool = False):
-    """One progressive sample: (H, W, 4) radiance, rendered in row bands
-    of `chunk_rows` when that is > 0 (bounds the wave state memory)."""
-    if chunk_rows <= 0 or chunk_rows >= height:
-        bands = [(0, height)]
-    else:
-        bands = [(r, min(chunk_rows, height - r)) for r in range(0, height, chunk_rows)]
-    imgs, logical, physical = [], 0.0, 0.0
-    for row, rows in bands:
-        img, st = render_rows(scene, bvh, camera, sample_index, row, rows=rows,
-                              width=width, height=height, cfg=cfg, has_alpha=has_alpha,
-                              tex_flags=tex_flags, return_stats=True)
-        imgs.append(img)
-        logical += st.logical
-        physical += st.physical
-    img = torch.cat(imgs, dim=0)
-    if return_stats:
-        return img, RayStats(logical=logical, physical=physical)
-    return img
+    """One progressive sample: (H, W, 4) radiance (and RayStats with
+    `return_stats`, as render_sample_stats)."""
+    img, stats = render_sample_stats(scene, bvh, camera, sample_index, width=width,
+                                     height=height, cfg=cfg, has_alpha=has_alpha,
+                                     chunk_rows=chunk_rows, tex_flags=tex_flags)
+    return (img, stats) if return_stats else img

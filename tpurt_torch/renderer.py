@@ -2,9 +2,9 @@
 (the counterpart of tpurt/renderer.py).
 
 It owns the accumulation buffer and the sample counter, resets on a
-camera change, and prints the reference's convergence line once the
-sample target is reached. The scene cache and checkpoints come in a
-later slice.
+camera change, prints the reference's convergence line once the sample
+target is reached, and saves and resumes checkpoints in tpurt's format.
+The scene cache comes in a later slice.
 
 Two render paths, chosen at construction:
 
@@ -33,7 +33,7 @@ from tpurt_torch import film
 from tpurt_torch.bvh.lbvh import TriBVH, build_triangle_bvh
 from tpurt_torch.camera import Camera
 from tpurt_torch.config import RenderConfig, SphereLight
-from tpurt_torch.integrator.wavefront import RayStats, render_sample
+from tpurt_torch.integrator.wavefront import RayStats, render_sample_stats
 from tpurt_torch.kernels import cudalib
 from tpurt_torch.kernels.experimental import rope
 from tpurt_torch.kernels.wide import (
@@ -47,6 +47,7 @@ from tpurt_torch.runtime.device import resolve_device
 from tpurt_torch.scene.device import DeviceScene, build_device_scene
 from tpurt_torch.scene.gltf import camera_for_render, load_gltf
 from tpurt_torch.scene.types import NO_TEXTURE, SceneData
+from tpurt_torch.utils import debug
 
 
 class Renderer:
@@ -140,10 +141,12 @@ class Renderer:
         t0 = time.perf_counter()
         spp = cfg.spp_per_launch
         launch_index = self.sample_count // spp
-        radiance, stats = render_sample(
+        radiance, stats = render_sample_stats(
             self.device_scene, self.bvh, self.camera, launch_index,
             width=cfg.width, height=cfg.height, cfg=cfg, has_alpha=self.has_alpha,
-            chunk_rows=cfg.chunk_rows, tex_flags=self.tex_flags, return_stats=True)
+            chunk_rows=cfg.chunk_rows, tex_flags=self.tex_flags)
+        if debug.checks_enabled():
+            debug.check_sample(radiance, self.sample_count)
         self.sample_count += spp
         self.accum = film.accumulate(self.accum, radiance, launch_index + 1)
         self._sync()
@@ -180,3 +183,33 @@ class Renderer:
 
     def image(self) -> np.ndarray:
         return self.accum.detach().cpu().numpy()
+
+    # ---- checkpoints ------------------------------------------------------------
+
+    def save_checkpoint(self, path: str) -> None:
+        film.save_checkpoint(path, self.accum, self.sample_count, self.config.seed,
+                             self.camera, spp_per_launch=self.config.spp_per_launch)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resume from a checkpoint of either package; the accumulation
+        buffer and the camera go to this renderer's device."""
+        ck = film.load_checkpoint(path)
+        shape = (self.config.height, self.config.width, 4)
+        if ck.accum.shape != shape:  # tpurt's assertion, kept under python -O
+            raise AssertionError(f"checkpoint accumulation {ck.accum.shape}, renderer {shape}")
+        # another seed would decorrelate or repeat the sample stream of the
+        # accumulated image; another spp_per_launch would mis-weight the
+        # per-launch running average
+        if ck.seed != self.config.seed:
+            raise ValueError(
+                f"checkpoint was rendered with seed {ck.seed}, config has "
+                f"seed {self.config.seed}; exact resume requires the same seed")
+        if ck.spp_per_launch and ck.spp_per_launch != self.config.spp_per_launch:
+            raise ValueError(
+                f"checkpoint used spp_per_launch={ck.spp_per_launch}, config "
+                f"has {self.config.spp_per_launch}; the per-launch running "
+                "average requires the same value to resume exactly")
+        self.accum = torch.from_numpy(np.ascontiguousarray(ck.accum, np.float32)).to(self.device)
+        self.sample_count = ck.sample_count
+        self.camera = ck.camera(self.device)
+        self._converged_reported = False
