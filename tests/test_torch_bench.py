@@ -29,6 +29,30 @@ def _records(text):
 
 
 @pytest.fixture(scope="module")
+def sample_counts():
+    """{sample: (logical, physical)} of samples 1 and 2 as Renderer.step
+    counts them (Renderer.last_stats), the renderer resumed at sample 1."""
+    import tempfile
+
+    from tpurt_torch.camera import Camera
+    from tpurt_torch.config import RenderConfig, SphereLight
+    from tpurt_torch.renderer import Renderer
+    from tpurt_torch.scene.procedural import write_sponza_like_scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_sponza_like_scene(os.path.join(tmp, "s.gltf"), **SMALL["scene_kw"])
+        r = Renderer.from_gltf(path, config=RenderConfig(width=64, height=48),
+                               camera=Camera.from_angles(*bench.CAMERA),
+                               lights=[SphereLight(*x) for x in bench.LIGHTS], device="cpu")
+    r.sample_count = 1
+    out = {}
+    for s in (1, 2):
+        r.step()
+        out[s] = (r.last_stats.logical, r.last_stats.physical)
+    return out
+
+
+@pytest.fixture(scope="module")
 def small_run():
     """One small run (2 timed samples, whole frames) and its stdout."""
     import contextlib
@@ -58,41 +82,22 @@ def test_final_record_has_bench_py_keys(small_run):
     assert all(r.get("provisional") for r in recs[:-1])
 
 
-def test_ray_counts_are_the_renderers(small_run):
+def test_ray_counts_are_the_renderers(small_run, sample_counts):
     """The record's rays are the sum of Renderer.last_stats over samples
     1..2 at the same seed (the card smoke holds the bench to the render
     phase this way)."""
-    from tpurt_torch.camera import Camera
-    from tpurt_torch.config import RenderConfig, SphereLight
-    from tpurt_torch.renderer import Renderer
-    from tpurt_torch.scene.procedural import write_sponza_like_scene
-
     final, _ = small_run
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = write_sponza_like_scene(os.path.join(tmp, "s.gltf"), **SMALL["scene_kw"])
-        r = Renderer.from_gltf(path, config=RenderConfig(width=64, height=48),
-                               camera=Camera.from_angles(*bench.CAMERA),
-                               lights=[SphereLight(*x) for x in bench.LIGHTS], device="cpu")
-    physical = logical = 0.0
-    for s in range(3):
-        r.step()
-        if s >= 1:
-            physical += r.last_stats.physical
-            logical += r.last_stats.logical
-    assert final["rays_traced_physical"] == physical
-    assert final["rays_logical"] == logical
+    assert final["rays_logical"] == sample_counts[1][0] + sample_counts[2][0]
+    assert final["rays_traced_physical"] == sample_counts[1][1] + sample_counts[2][1]
 
 
-def test_bands_count_the_same_rays(small_run, capsys):
-    """24-row bands: two timed units per sample, the same ray counts as
-    whole frames."""
-    final, _ = small_run
-    rec = bench.run(device="cpu", samples=2, band_rows=24, deadline_s=600, **SMALL)
-    assert rec["bands_timed"] == 4 and rec["samples_done"] == 2
-    assert rec["rays_traced_physical"] == final["rays_traced_physical"]
-    assert rec["rays_logical"] == final["rays_logical"]
+def test_bands_count_the_same_rays(sample_counts, capsys):
+    """24-row bands: two timed units per sample, the rays of the whole
+    frame."""
+    rec = bench.run(device="cpu", samples=1, band_rows=24, deadline_s=600, **SMALL)
+    assert rec["bands_timed"] == 2 and rec["samples_done"] == 1
+    assert (rec["rays_logical"], rec["rays_traced_physical"]) == sample_counts[1]
+    assert rec["time_to_1024spp_s"] == pytest.approx(1024 * rec["seconds"])
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
 
 

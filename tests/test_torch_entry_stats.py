@@ -121,39 +121,31 @@ def test_counts_and_image_match_tpurt(port_stats, tpurt_stats, path, chunk):
         assert err < 1e-5, f"{path} chunk_rows={chunk} sample {s}: RMSE {err}"
 
 
-def test_bands_sum_to_the_frame(renderers, port_stats):
-    """render_rows_stats over the frame's bands: the bands' images are the
-    frame's rows (within 1e-5 RMSE: a band's rays go through the batch
-    in another order), and their counts sum to render_sample_stats's."""
-    r = renderers["wide"]
-    img, st = port_stats[("wide", 0, 1)]
-    logical = physical = 0.0
-    for row in range(0, H, 12):
-        band, bst = render_rows_stats(r.device_scene, r.bvh, r.camera, 1, row, rows=12,
-                                      width=W, height=H, cfg=CFG, has_alpha=r.has_alpha,
-                                      tex_flags=r.tex_flags)
-        assert band.shape == (12, W, 4)
-        assert film.rmse(band, img[row:row + 12]) < 1e-5
-        logical += bst.logical
-        physical += bst.physical
-    assert (logical, physical) == (st.logical, st.physical)
+@pytest.mark.parametrize("path", ["wide", "rope"])
+def test_bands_sum_to_the_frame(port_stats, path):
+    """In 12-row bands (render_rows_stats per band) a sample counts the
+    rays of the whole frame, and its image is the whole frame's within
+    1e-5 RMSE (a band's rays go through the batch in another order)."""
+    for s in SAMPLES:
+        img, st = port_stats[(path, 0, s)]
+        bands, bst = port_stats[(path, 12, s)]
+        assert (bst.logical, bst.physical) == (st.logical, st.physical)
+        assert film.rmse(bands, img) < 1e-5
 
 
 def test_return_stats_flags_are_the_stats_entry_points(renderers, port_stats):
-    """render_sample / render_rows with and without return_stats give the
-    stats entry points' image and counts."""
+    """render_sample and render_rows, with and without return_stats, give
+    the stats entry points' image and counts."""
     r = renderers["wide"]
     kw = dict(width=W, height=H, cfg=CFG, has_alpha=r.has_alpha, tex_flags=r.tex_flags)
     img, st = port_stats[("wide", 0, 0)]
-    img2, st2 = render_sample(r.device_scene, r.bvh, r.camera, 0, return_stats=True, **kw)
-    assert st2 == st and np.array_equal(img2.numpy(), img.numpy())
-    img3 = render_sample(r.device_scene, r.bvh, r.camera, 0, **kw)
-    assert np.array_equal(img3.numpy(), img.numpy())
-    band = render_rows(r.device_scene, r.bvh, r.camera, 0, 12, rows=12, **kw)
-    band2, bst = render_rows(r.device_scene, r.bvh, r.camera, 0, 12, rows=12,
-                             return_stats=True, **kw)
-    assert np.array_equal(band.numpy(), img[12:].numpy())
-    assert np.array_equal(band2.numpy(), band.numpy()) and bst.physical > 0
+    img2 = render_sample(r.device_scene, r.bvh, r.camera, 0, **kw)
+    assert np.array_equal(img2.numpy(), img.numpy())
+    band, bst = render_rows(r.device_scene, r.bvh, r.camera, 0, 12, rows=12,
+                            return_stats=True, **kw)
+    band2, bst2 = render_rows_stats(r.device_scene, r.bvh, r.camera, 0, 12, rows=12, **kw)
+    assert np.array_equal(band.numpy(), band2.numpy()) and bst == bst2
+    assert film.rmse(band, img[12:]) < 1e-5 and 0 < bst.physical < st.physical
 
 
 def test_renderer_last_stats_are_the_sample_counts(renderers, tpurt_stats):
@@ -161,8 +153,8 @@ def test_renderer_last_stats_are_the_sample_counts(renderers, tpurt_stats):
     counts are held against them on the card)."""
     r = renderers["wide"]
     r.reset()
-    for s in SAMPLES:
-        r.step()
-        _, logical, physical = tpurt_stats[(0, s)]
-        assert (r.last_stats.logical, r.last_stats.physical) == (logical, physical)
-    assert r.rays.physical == sum(tpurt_stats[(0, s)][2] for s in SAMPLES)
+    r.sample_count = 1  # resume at sample 1
+    r.step()
+    _, logical, physical = tpurt_stats[(0, 1)]
+    assert (r.last_stats.logical, r.last_stats.physical) == (logical, physical)
+    assert r.rays == r.last_stats and r.sample_count == 2
