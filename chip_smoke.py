@@ -24,7 +24,18 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            bits, prim, u, v or blocked: the same walk order), and across: K3
            against K1 (same cell rejection) and K4 against K2 (tables without
            masks, once with every hit definite and once with none), equal t,
-           prim only on ties, blocked equal
+           prim only on ties, blocked equal. Then K1/K2 over 8-ary tables of
+           the same tree on the same three batches, against their plain
+           versions by the same rule (K1 also against the 16-ary K1: equal t,
+           prim only on ties), timed in turns with the plain versions and
+           with the 16-ary kernels; the two-pass near trace
+           (kernel_bench.near_pass) on the bounce batch's rays that hit,
+           r0 at the 85th percentile of their t: no overflow, and t the
+           single pass's bit for bit; then `python -m
+           tpurt_torch.kernel_bench --arity 8 --near 0.1` through its
+           main(), its record on the phase's line: where no ray overflowed
+           the second pass, the two-pass t must be the single pass's bit
+           for bit
   render   Renderer.render at 1920x1080: 1 warm-up and 2 timed samples
            (each sample's physical ray count kept for `bench`),
            with the kernel launch counters zeroed just before; NaN pixels
@@ -92,8 +103,28 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            stepcost_plain on the same inputs, t, prim and acc bit-equal;
            the table is printed as one JSON line. The K6 row of the
            kernels line is this run's full configuration
+  lbvh     the device LBVH: _build_triangle_bvh_device on the card's
+           triangles of the bench scene (cold and warm seconds, with a sync,
+           beside the native SAH build's and the same function's on the
+           CPU), every array equal to the CPU run's, validate_lbvh, wide
+           tables packed from it; K1 on the 65,536 camera rays over them
+           against K1 over the native tables (t equal, prim only on ties;
+           both timed in turns); then the render through those tables, 1
+           warm-up and 2 timed samples, launch counters zeroed just before:
+           K1 and K2 launch and nothing else, 0 NaN pixels, the image within
+           ROPE_VS_WIDE_RMSE of the `render` phase's; s/sample and launches
+           beside the `render` phase's; three samples of each of the two
+           renderers in turns, and one device-LBVH sample under
+           torch.profiler (K1/K2 device ms, the device's busy share)
   golden   the box golden (64x48, 8 spp) rendered on the card, RMSE against
            tests/goldens/box_64x48_8spp.npz (fail above 1e-3)
+  oracle   the brute-force oracle against the production wave loop on the
+           card, tests/test_oracle_parity.py's three cases at 64x48: the box
+           in exact mode (8 spp, relative RMSE < 0.01), the box folded (48
+           spp, relative mean difference < 0.02, relative RMSE < 0.08), the
+           alpha-tested mini Sponza in exact mode (4 spp, relative RMSE <
+           0.01, has_alpha); the oracle's images on the card, production
+           launching K1 and K2; seconds per sample of both in each case
   cli      the user entry point, `python -m tpurt_torch.cli`, as child
            processes from the repo root, on the same scene file with the
            bench's camera and lights at 1920x1080: A renders 4 spp with a
@@ -114,7 +145,8 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
 the {"kernels": [...]} line (K1-K6; K1-K3 with their whole-frame waves
-and their share of a traced sample), and last {"ok": true, "device":
+and their share of a traced sample, K1/K2 with their arity-8 and
+device-LBVH runs), and last {"ok": true, "device":
 {...}}. A watchdog ends the run with exit code 1, naming the phase it was
 in, after 600 seconds, and kills a child process it is waiting for. Needs
 torch with CUDA, numpy, nvcc and g++; no JAX, no Pillow, no prebuilt
@@ -496,6 +528,228 @@ def bench_phase(info, sample_physical, env):
                            f"samples 1..{done}, the renderer {want}")
 
 
+# tests/test_oracle_parity.py's cases: (name, spp, fold_bsdf_mis, bounds)
+ORACLE_SIZE = (64, 48)
+ORACLE_CASES = (("box_exact", 8, False, {"rel_rmse": 0.01}),
+                ("box_folded", 48, True, {"rel_mean": 0.02, "rel_rmse": 0.08}),
+                ("alpha_exact", 4, False, {"rel_rmse": 0.01}))
+
+
+def oracle_phase(info, dev, work, size=ORACLE_SIZE, cases=ORACLE_CASES):
+    """The brute-force oracle against the production wave loop on `dev`,
+    with tests/test_oracle_parity.py's scenes, cameras, lights, sample
+    counts and bounds: relative RMSE (and, folded, the relative mean
+    difference) of the two averaged images. The oracle's images must lie
+    on `dev` and production must launch K1 and K2. Records each case's
+    seconds per sample of both."""
+    import numpy as np
+    import torch
+
+    from tpurt_torch.camera import Camera
+    from tpurt_torch.config import RenderConfig, SphereLight
+    from tpurt_torch.integrator.oracle import render_sample_oracle
+    from tpurt_torch.integrator.wavefront import render_sample
+    from tpurt_torch.renderer import Renderer
+    from tpurt_torch.scene.procedural import write_box_scene, write_sponza_like_scene
+
+    w, h = size
+    box = Renderer.from_gltf(
+        write_box_scene(os.path.join(work, "oracle_box.gltf")),
+        config=RenderConfig(width=w, height=h, max_samples=64, fold_bsdf_mis=False),
+        camera=Camera.from_angles([1.5, 1.2, 2.0], float(np.arctan2(-1.5, -2.0)), -0.45),
+        lights=[SphereLight((2.0, 2.0, 2.0), 0.3, (1.0, 0.9, 0.8), 50.0)], device=dev)
+    alpha = Renderer.from_gltf(
+        write_sponza_like_scene(os.path.join(work, "oracle_mini.gltf"), columns=1, foliage=6,
+                                stacks=1, segments=8, rings=6),
+        config=RenderConfig(width=w, height=h, max_samples=8, fold_bsdf_mis=False),
+        camera=Camera.from_angles([0.0, -4.0, 0.0], 0.7, -0.1),
+        lights=[SphereLight((0.0, -6.0, 0.0), 0.3, (0.9, 0.9, 0.7), 300.0)], device=dev)
+    if not alpha.has_alpha:
+        raise RuntimeError("the alpha scene has no alpha-tested triangle")
+
+    def average(render, spp):
+        acc = np.zeros((h, w, 3))
+        t0 = time.perf_counter()
+        for s in range(spp):
+            img = render(s)
+            if img.device.type != dev.type:
+                raise RuntimeError(f"an image came back on {img.device}, not {dev}")
+            acc += img[..., :3].cpu().numpy()
+        return acc / spp, (time.perf_counter() - t0) / spp
+
+    out = {}
+    for name, spp, fold, bounds in cases:
+        r = alpha if name.startswith("alpha") else box
+        cfg = dataclasses.replace(r.config, fold_bsdf_mis=fold)
+        zero_launch_counts()
+        prod, prod_s = average(lambda s: render_sample(
+            r.device_scene, r.bvh, r.camera, s, width=w, height=h, cfg=cfg,
+            has_alpha=r.has_alpha, tex_flags=r.tex_flags), spp)
+        launches = launch_counts()
+        orac, orac_s = average(lambda s: render_sample_oracle(
+            r.device_scene, r.camera, s, width=w, height=h, cfg=cfg), spp)
+        got = {"rel_rmse": float(np.sqrt(((prod - orac) ** 2).mean())) / float(orac.mean()),
+               "rel_mean": abs(float(prod.mean() - orac.mean())) / float(orac.mean())}
+        out[name] = dict(spp=spp, fold_bsdf_mis=fold, triangles=int(r.device_scene.tri_pos.shape[0]),
+                         has_alpha=r.has_alpha, oracle_s_per_sample=orac_s,
+                         production_s_per_sample=prod_s, launches=launches,
+                         oracle_mean=float(orac.mean()), production_mean=float(prod.mean()),
+                         bounds=bounds, **{k: got[k] for k in bounds})
+        if min(launches["closest"], launches["occlusion"]) <= 0:
+            raise RuntimeError(f"{name}: production did not launch K1 and K2: {launches}")
+        if not np.isfinite(orac).all() or not orac.mean() > 0:
+            raise RuntimeError(f"{name}: oracle image not finite and positive")
+        for k, bound in bounds.items():
+            if not got[k] < bound:
+                raise RuntimeError(f"{name}: production against the oracle, {k} {got[k]} "
+                                   f"(bound {bound})")
+    info.update(size=list(size), cases=out)
+
+
+def lbvh_phase(info, r, scene, camera, lights, kb, o_cam, d_cam, wide_img, wide_render):
+    """The device LBVH on the bench scene: _build_triangle_bvh_device on
+    the card's triangles (cold and warm seconds beside the native SAH
+    build's and the CPU run's), every array equal to the CPU run's,
+    validate_lbvh, wide tables packed from it, K1 over them on the camera
+    batch against K1 over the native tables `kb` (t bit-equal, prim only on
+    ties; both timed in turns), then the render through those tables:
+    1 warm-up and 2 timed samples, launch counters zeroed just before,
+    K1/K2 launched and nothing else, 0 NaN pixels, RMSE against the wide
+    render's image `wide_img` within ROPE_VS_WIDE_RMSE; then three samples
+    of each renderer in turns, and one device-LBVH sample traced. Returns
+    the render's launch counts."""
+    import numpy as np
+    import torch
+
+    from tpurt_torch import film, native
+    from tpurt_torch.bvh import lbvh
+    from tpurt_torch.kernels import cudalib, wide
+    from tpurt_torch.renderer import Renderer
+
+    dev = r.device
+    ds = r.device_scene
+    tri_np = ds.tri_pos.cpu().numpy()
+    g = wide.pick_group_size_wide(tri_np.shape[0])
+    seconds = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    built = timed("device_build_cold_s", lambda: lbvh._build_triangle_bvh_device(
+        ds.tri_pos, g, device=dev))
+    again = timed("device_build_warm_s", lambda: lbvh._build_triangle_bvh_device(
+        ds.tri_pos, g, device=dev))
+    if not native.available():
+        raise RuntimeError(f"native library unavailable: {native.unavailable_reason()}")
+    sah = timed("native_sah_build_s", lambda: lbvh.build_triangle_bvh(tri_np, g, device=dev))
+    cpu = timed("device_build_on_cpu_s", lambda: lbvh._build_triangle_bvh_device(
+        tri_np, g, device="cpu"))
+    differ = {}
+    for name, a, b in [("tri_order", built.tri_order, cpu.tri_order)] + [
+            (f, getattr(built.bvh, f), getattr(cpu.bvh, f)) for f in lbvh.LBVH._fields]:
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+            bad = np.nonzero((a != b).reshape(-1))[0] if a.shape == b.shape else []
+            differ[name] = {"differing": len(bad), "first": int(bad[0]) if len(bad) else None,
+                            "card": str(a.dtype), "cpu": str(b.dtype)}
+    repeat_equal = all(getattr(built.bvh, f).tobytes() == getattr(again.bvh, f).tobytes()
+                       for f in lbvh.LBVH._fields)
+    grouped = tri_np[built.tri_order].reshape(-1, g, 3, 3)
+    timed("validate_s", lambda: lbvh.validate_lbvh(built.bvh, grouped.min(axis=(1, 2)),
+                                                   grouped.max(axis=(1, 2))))
+    kb_dev = timed("pack_s", lambda: wide.make_wide_kernel_bvh(
+        built, tri_np, tri_alpha_mask=ds.tri_alpha_mask if r.has_alpha else None,
+        tri_alpha_opaque=ds.tri_alpha_opaque if r.has_alpha else None, device=dev))
+    info.update(group=g, leaves=built.bvh.num_leaves, sah_leaves=sah.bvh.num_leaves,
+                differs_from_cpu=differ, repeat_equal=repeat_equal,
+                wide_nodes=int(kb_dev.node_rows.shape[1]), sah_wide_nodes=int(kb.node_rows.shape[1]),
+                depth_bound=kb_dev.depth_bound, sah_depth_bound=kb.depth_bound)
+    if differ:
+        raise RuntimeError(f"the device build on the card differs from its CPU run: {differ} "
+                           "(each step is elementwise, a gather, min/max, a stable sort or a "
+                           "unique-index scatter, so the two must agree)")
+    if not repeat_equal:
+        raise RuntimeError("two device builds of the same triangles differ")
+
+    n = o_cam.shape[0]
+    z = torch.zeros(n, dtype=torch.float32, device=dev)
+    far = torch.full((n,), 1e9, dtype=torch.float32, device=dev)
+    kw = dict(occlusion=False, all_definite=False, cell_masks=False)
+
+    def k1_dev():
+        return wide.traverse_cuda(kb_dev, o_cam, d_cam, z, far, **kw)
+
+    def k1_sah():
+        return wide.traverse_cuda(kb, o_cam, d_cam, z, far, **kw)
+
+    cmp = compare("closest", k1_dev(), k1_sah())
+    cudalib.check_kernel_errors(dev)
+    dev_ms, sah_ms = timed_pair(k1_dev, k1_sah)
+    info["k1_camera_vs_sah"] = dict(cmp, ms=dev_ms, sah_ms=sah_ms)
+    if cmp["mismatch"]:
+        raise RuntimeError(f"K1 over the device-built tables against the native tables: {cmp}")
+
+    t0 = time.perf_counter()
+    rl = Renderer(scene, config=r.config, camera=camera, lights=lights, device=dev, bvh=kb_dev)
+    seconds["renderer_s"] = time.perf_counter() - t0
+    zero_launch_counts()
+    rl.render(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rl.render(3)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = launch_counts()
+    img = rl.accum.cpu().numpy()
+    nan_px = int(np.isnan(img).any(axis=-1).sum())
+    rmse_wide = film.rmse(img, wide_img)
+    info.update(step_seconds={k: round(v, 3) for k, v in seconds.items()},
+                seconds_per_sample=round(timed_s / 2, 3), launches=launches, nan_pixels=nan_px,
+                rmse_vs_wide=rmse_wide, rmse_bound=ROPE_VS_WIDE_RMSE, wide_render=wide_render)
+
+    # s/sample of the two trees in turns (wide render, device-LBVH render,
+    # three each), then one device-LBVH sample under the profiler: K1/K2's
+    # device ms and the busy share, beside the `trace` phase's
+    from torch.profiler import ProfilerActivity, profile
+
+    turns = {"sah": [], "device_lbvh": []}
+    for _ in range(3):
+        for name, rr in (("sah", r), ("device_lbvh", rl)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rr.step()
+            torch.cuda.synchronize()
+            turns[name].append(time.perf_counter() - t0)
+    info["seconds_per_sample_in_turns"] = {k: median(v) for k, v in turns.items()}
+    info["sample_seconds_in_turns"] = turns
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rl.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    traced = launch_counts()
+    summary = trace_summary(prof, wall, ("K1", "K2"))
+    del prof
+    info["trace"] = dict(sample_wall_s=wall, launches=traced, **summary)
+    for k, mode in (("K1", "closest"), ("K2", "occlusion")):
+        if summary[k]["launches"] != traced[mode]:
+            raise RuntimeError(f"{k}: {summary[k]['launches']} kernels traced, "
+                               f"{traced[mode]} launches counted")
+    others = sum(v for k, v in launches.items() if k not in ("closest", "occlusion"))
+    if min(launches["closest"], launches["occlusion"]) <= 0 or others:
+        raise RuntimeError(f"the device-LBVH render did not launch K1 and K2 alone: {launches}")
+    if nan_px or not rmse_wide <= ROPE_VS_WIDE_RMSE:
+        raise RuntimeError(f"device-LBVH image: {nan_px} NaN pixels, RMSE {rmse_wide} against "
+                           f"the wide render (bound {ROPE_VS_WIDE_RMSE})")
+    return launches
+
+
 def main():
     _state["t0"] = time.perf_counter()
     timer = threading.Timer(DEADLINE_S, watchdog)
@@ -518,7 +772,7 @@ def main():
 
     import numpy as np
 
-    from tpurt_torch import film, native
+    from tpurt_torch import film, kernel_bench, native
     from tpurt_torch.bvh.lbvh import build_triangle_bvh
     from tpurt_torch.bvh.traverse import _octant_morton_key
     from tpurt_torch.camera import Camera, camera_rays_for_rows
@@ -771,6 +1025,96 @@ def main():
             row["max_abs_err"] = max([row["max_abs_err"]]
                                      + [v["max_abs_err"] for v in across.values()])
 
+        # ---- K1/K2 over 8-ary tables of the same tree, against their plain
+        # versions and timed in turns with them and with the 16-ary tables
+        kb8 = wide.make_wide_kernel_bvh(
+            kb.tribvh, tri_np, tri_alpha_mask=ds.tri_alpha_mask if r.has_alpha else None,
+            tri_alpha_opaque=ds.tri_alpha_opaque if r.has_alpha else None, arity=8, device=dev)
+        arity8 = {}
+        for name, mode, o, d, tl, masks in cases:
+            kw = dict(occlusion=mode == "occlusion", all_definite=not r.has_alpha,
+                      cell_masks=masks)
+
+            def kern8(o=o, d=d, tl=tl, kw=kw):
+                return wide.traverse_cuda(kb8, o, d, zeros, tl, **kw)
+
+            def kern16(o=o, d=d, tl=tl, kw=kw):
+                return wide.traverse_cuda(kb, o, d, zeros, tl, **kw)
+
+            stats = {}
+
+            def plain8(o=o, d=d, tl=tl, kw=kw, stats=stats):
+                return wide.traverse_plain(kb8.node_rows, kb8.tri_rows, o, d, zeros, tl,
+                                           group=kb8.group_size, arity=8, stats=stats, **kw)
+
+            out_k = kern8()
+            out_p = plain8()
+            cudalib.check_kernel_errors(dev)
+            cmp = compare_exact(out_k, out_p)
+            if mode == "closest":  # the same function at either arity
+                cmp["vs_arity16"] = compare("closest", out_k, kern16())
+            b_ms, b_by, ops, nbytes = bound(stats, N_RAYS, kb8.tri_rows.shape[1],
+                                            kb8.group_size)
+            k_ms, p_ms = timed_pair(kern8, plain8)
+            k8_ms, k16_ms = timed_pair(kern8, kern16)
+            arity8[name] = dict(mode=mode, ms=k_ms, plain_ms=p_ms, in_turns_ms=k8_ms,
+                                arity16_in_turns_ms=k16_ms, bound_ms=b_ms, bound_by=b_by,
+                                ops=ops, bytes=nbytes,
+                                box_tests_per_ray=float(stats["box_tests"].float().mean()),
+                                node_visits_per_ray=float(stats["node_visits"].float().mean()),
+                                **cmp)
+        cudalib.check_kernel_errors(dev)
+        info.update(arity8_cases=arity8, arity8_wide_nodes=int(kb8.node_rows.shape[1]),
+                    arity8_depth_bound=kb8.depth_bound)
+        bad = sum(v["mismatch"] + v.get("vs_arity16", {}).get("mismatch", 0)
+                  for v in arity8.values())
+        if bad:
+            raise RuntimeError(f"K1/K2 over 8-ary tables against the plain version: {bad} "
+                               "rays differ")
+        for row, names in ((kernel_rows[0], ("camera", "bounce")), (kernel_rows[1], ("shadow",))):
+            sel = [arity8[c] for c in names]
+            row["arity8"] = {"ms": sum(x["ms"] for x in sel),
+                             "plain_ms": sum(x["plain_ms"] for x in sel),
+                             "in_turns_ms": sum(x["in_turns_ms"] for x in sel),
+                             "arity16_in_turns_ms": sum(x["arity16_in_turns_ms"] for x in sel),
+                             "bound_ms": max(sum(x["ops"] for x in sel) / PEAK_F32,
+                                             sum(x["bytes"] for x in sel) / PEAK_BYTES) * 1e3,
+                             "rays": N_RAYS * len(sel), "mismatch": 0,
+                             "max_abs_err": max(x["max_abs_err"] for x in sel)}
+        # the two-pass near trace without overflow: the bounce batch's rays
+        # that hit (in sort order, a whole number of packets), r0 at the
+        # 85th percentile of their t, so 15% go to the second pass; t must
+        # be the single pass's bit for bit
+        _, _, o, d, _, _ = cases[1]
+        t1, p1, _ = wide.traverse_cuda(kb8, o, d, zeros, far, occlusion=False,
+                                       all_definite=False, cell_masks=False)
+        sel = torch.nonzero(p1 >= 0)[:, 0]
+        sel = sel[:sel.numel() // 1024 * 1024]
+        r0 = float(torch.quantile(t1[sel].double(), 0.85))
+        t2, p2, nmiss, capn = kernel_bench.near_pass(kb8, o[sel].contiguous(),
+                                                     d[sel].contiguous(), r0, cfg.t_max)
+        cudalib.check_kernel_errors(dev)
+        near = {"rays": int(sel.numel()), "r0": r0, "misses": int(nmiss), "capn": capn,
+                "overflow": int(nmiss) > capn,
+                "t_bit_equal": bool(torch.equal(t2.view(torch.int32),
+                                                t1[sel].view(torch.int32))),
+                "prim_agree": float((p2 == p1[sel]).float().mean())}
+        info["near2_without_overflow"] = near
+        if near["overflow"] or not near["t_bit_equal"] or not near["misses"]:
+            raise RuntimeError(f"two-pass near trace against the single pass: {near}")
+        del kb8
+
+        # kernel_bench at arity 8 with the two-pass near trace, through its
+        # entry point; where no ray overflowed the second pass, the two-pass
+        # t must be the single pass's bit for bit
+        rec = kernel_bench.main(["--arity", "8", "--near", "0.1", "--reps", str(REPS)])
+        cudalib.check_kernel_errors(dev)
+        info["kernel_bench_arity8_near"] = rec
+        if rec["arity"] != 8 or not (rec["near2_overflow"] or rec["near2_t_bit_equal"]):
+            raise RuntimeError(f"kernel_bench --arity 8 --near 0.1: arity {rec['arity']}, "
+                               f"overflow {rec['near2_overflow']}, t bit-equal "
+                               f"{rec['near2_t_bit_equal']}")
+
     with Phase("render") as info:
         # during the warm-up sample, keep the first launch of each kind of
         # wave (inputs and kernel outputs) to hold against the plain version
@@ -829,6 +1173,8 @@ def main():
             raise RuntimeError(f"bad image: {nan_px} NaN pixels, mean {mean}")
         kernel_rows[0]["launches"] = launches["closest"]
         kernel_rows[1]["launches"] = launches["occlusion"]
+        wide_render = {"seconds_per_sample": info["seconds_per_sample"],
+                       "launches": {k: launches[k] for k in ("closest", "occlusion")}}
 
         # each captured wave against the plain version, then K1/K2 timed on
         # it: the main path's own shapes (whole-frame waves)
@@ -1285,8 +1631,6 @@ def main():
         # kernel_bench's step-cost table through its entry point; the first
         # K6 launch of each configuration is kept and, after the run, held
         # against stepcost_plain on the same inputs, bit for bit
-        from tpurt_torch import kernel_bench
-
         launch6, bench_cases = wide.stepcost_cuda, {}
 
         def capture6(kbvh, o, d, t_min, t_limit, **kw):
@@ -1349,6 +1693,14 @@ def main():
             "main_path_rays_checked": sum(v["rays"] for v in bench_checks.values()),
             "ptxas": ptxas["k6_ptxas"]})
 
+    with Phase("lbvh") as info:
+        lb_launches = lbvh_phase(info, r, scene, camera, lights, kb, o_cam, d_cam, wide_img,
+                                 wide_render)
+        for row, mode in ((kernel_rows[0], "closest"), (kernel_rows[1], "occlusion")):
+            row["device_lbvh"] = {"launches": lb_launches[mode],
+                                  "seconds_per_sample": info["seconds_per_sample"]}
+        kernel_rows[0]["device_lbvh"]["camera_65536"] = info["k1_camera_vs_sah"]
+
     with Phase("golden") as info:
         box = write_box_scene(os.path.join(tmp.name, "box.gltf"))
         cam = Camera.from_angles([1.5, 1.2, 2.0], float(np.arctan2(-1.5, -2.0)), -0.45)
@@ -1361,6 +1713,9 @@ def main():
         info.update(rmse=err, within_1e_5=err < 1e-5)
         if not err < 1e-3:
             raise RuntimeError(f"box golden RMSE {err} above 1e-3")
+
+    with Phase("oracle") as info:
+        oracle_phase(info, dev, tmp.name)
 
     torch.cuda.empty_cache()  # the entry points below run in processes of their own
     with Phase("cli") as info:

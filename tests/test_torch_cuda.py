@@ -3,7 +3,9 @@ occlusion; csrc/rope_traverse.cu, K3 rope closest hit and K4 rope
 occlusion; csrc/wide_octet.cu, K5 multi-walk; csrc/wide_stepcost.cu, K6
 step cost) against their plain PyTorch versions on the same inputs, and
 the box golden rendered through the wide kernels, through K5 and through
-K3. These need an NVIDIA card: they
+K3; the brute-force oracle against the wave loop on the card, and the
+device LBVH build on the card against its CPU run. These need an NVIDIA
+card: they
 are marked `cuda` and skip without one. They import nothing of JAX or
 tpurt, so they also run where neither is installed:
 
@@ -609,3 +611,52 @@ def test_cli_render_on_the_card_writes_its_png(dev, tmp_path):
     assert os.path.getsize(out) > 0
     golden = np.load(os.path.join(GOLDEN_DIR, "box_64x48_8spp.npz"))["accum"]
     assert film.rmse(np.load(acc)["accum"], golden) < 1e-5
+
+
+def test_oracle_matches_production_on_the_card(dev, tmp_path):
+    """The brute-force oracle and the wave loop (K1/K2) on the card's
+    tensors, exact mode, the same streams: tests/test_oracle_parity.py's
+    bound. The oracle's image equals its CPU run within the golden bound."""
+    from tpurt_torch.integrator.oracle import render_sample_oracle
+    from tpurt_torch.integrator.wavefront import render_sample
+
+    box = write_box_scene(str(tmp_path / "box.gltf"))
+    cam = Camera.from_angles([1.5, 1.2, 2.0], float(np.arctan2(-1.5, -2.0)), -0.45)
+    cfg = RenderConfig(width=32, height=24, max_samples=4, fold_bsdf_mis=False)
+    light = [SphereLight((2.0, 2.0, 2.0), 0.3, (1.0, 0.9, 0.8), 50.0)]
+    r = Renderer.from_gltf(box, config=cfg, camera=cam, lights=light, device=dev)
+    rc = Renderer.from_gltf(box, config=cfg, camera=cam, lights=light, device="cpu")
+    before = dict(wide.LAUNCHES)
+    prod = np.zeros((24, 32, 3))
+    orac = np.zeros((24, 32, 3))
+    for s in range(4):
+        prod += render_sample(r.device_scene, r.bvh, r.camera, s, width=32, height=24, cfg=cfg,
+                              has_alpha=r.has_alpha, tex_flags=r.tex_flags)[..., :3].cpu().numpy()
+        img = render_sample_oracle(r.device_scene, r.camera, s, width=32, height=24, cfg=cfg)
+        assert img.device.type == "cuda"
+        orac += img.cpu().numpy()
+        cpu = render_sample_oracle(rc.device_scene, rc.camera, s, width=32, height=24, cfg=cfg)
+        assert film.rmse(img.cpu().numpy(), cpu.numpy()) < 1e-5
+    assert wide.LAUNCHES["closest"] > before["closest"]
+    rel = float(np.sqrt(((prod - orac) ** 2).mean())) / float(orac.mean())
+    assert rel < 0.01, rel
+
+
+def test_device_lbvh_on_the_card_equals_the_cpu_build(dev):
+    """The device build on the card's tensors gives the CPU build's tree:
+    every integer array equal, every box bit-equal; and it validates."""
+    from tpurt_torch.bvh import lbvh
+
+    r = np.random.RandomState(4)
+    tris = ((r.rand(5000, 1, 3) - 0.5) * 20 + (r.rand(5000, 3, 3) - 0.5)).astype(np.float32)
+    tris[2500] = tris[0]
+    for g in (4, 8):
+        card = lbvh._build_triangle_bvh_device(tris, g, device=dev)
+        cpu = lbvh._build_triangle_bvh_device(tris, g, device="cpu")
+        assert card.tri_order.tobytes() == cpu.tri_order.tobytes()
+        for f in lbvh.LBVH._fields:
+            a, b = getattr(card.bvh, f), getattr(cpu.bvh, f)
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), (g, f)
+        gmin = tris[card.tri_order].reshape(-1, g, 3, 3).min(axis=(1, 2))
+        gmax = tris[card.tri_order].reshape(-1, g, 3, 3).max(axis=(1, 2))
+        lbvh.validate_lbvh(card.bvh, gmin, gmax)

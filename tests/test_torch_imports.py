@@ -29,7 +29,7 @@ def test_every_module_imports_without_jax_tpurt_pil_ml_dtypes():
     mods = _all_modules()
     assert "tpurt_torch.kernels.wide" in mods and "tpurt_torch.integrator.wavefront" in mods
     assert {"tpurt_torch.kernels.experimental.rope", "tpurt_torch.kernels.cudalib",
-            "tpurt_torch.kernels.experimental"} <= set(mods)
+            "tpurt_torch.kernels.experimental", "tpurt_torch.integrator.oracle"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"mods = {mods!r}\n"
@@ -73,6 +73,9 @@ def test_no_module_source_mentions_forbidden_imports():
     "tpurt_torch.convert:kernel_bvh_from_tpurt",
     "tpurt_torch.kernels.experimental.rope:make_kernel_bvh",
     "tpurt_torch.runtime.device:resolve_device",
+    "tpurt_torch.bvh.lbvh:build_lbvh",
+    "tpurt_torch.bvh.lbvh:_build_triangle_bvh_device",
+    "tpurt_torch.bvh.lbvh:build_triangle_bvh",
 ])
 def test_entry_points_default_to_cuda(fn):
     import importlib

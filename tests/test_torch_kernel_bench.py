@@ -68,11 +68,13 @@ def test_parser_defaults_to_the_card_and_offers_no_tpu_variants():
     args = ap.parse_args([])
     assert args.device == "cuda" and args.rows == 256 and args.row0 == 400
     assert args.octet == 0 and args.stepcost == 0
-    for flag in ("--dual", "--pair", "--descend", "--sup", "--race-sup", "--arity", "--near"):
+    assert args.arity == 0 and args.near == 0.0
+    for flag in ("--dual", "--pair", "--descend", "--sup", "--race-sup"):
         with pytest.raises(SystemExit):
             ap.parse_args([flag])
-    with pytest.raises(SystemExit):
-        ap.parse_args(["--octet", "3"])
+    for bad in (["--octet", "3"], ["--arity", "12"]):
+        with pytest.raises(SystemExit):
+            ap.parse_args(bad)
 
 
 def test_json_path_is_optional(mini_scene, tmp_path, monkeypatch):
@@ -156,3 +158,73 @@ def test_octet_batches_carry_the_union_bound(mini_scene):
     assert got[2] == (float(stats["box_tests"].sum()) * kernel_bench.OPS_PER_BOX
                       + float(stats["leaf_visits"].sum()) * kb.group_size
                       * kernel_bench.OPS_PER_TRIANGLE)
+
+
+def test_arity_8_tables_equal_tpurts(mini_scene):
+    """--arity 8 rebuilds the renderer's tables through
+    make_wide_kernel_bvh(arity=8): node and leaf rows byte-equal to
+    tpurt's make_wide_kernel_bvh(..., arity=8) over the same tree, with
+    the alpha masks."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from tpurt.bvh import build_triangle_bvh as j_build_bvh
+    from tpurt.kernels import pallas_wide as jw
+    from tpurt.scene.device import build_device_scene as j_dev
+    from tpurt.scene.gltf import load_gltf as j_load
+
+    r = kernel_bench.load_renderer(mini_scene, "cpu")
+    kb = kernel_bench.rebuild(r, arity=8)
+    assert kb.arity == 8 and r.has_alpha and kb.use_masks
+    ds = j_dev(j_load(mini_scene))
+    jtb = j_build_bvh(ds.tri_pos, group_size=kb.group_size)
+    jkb = jw.make_wide_kernel_bvh(jtb, ds.tri_pos, tri_alpha_mask=ds.tri_alpha_mask,
+                                  tri_alpha_opaque=ds.tri_alpha_opaque, arity=8)
+    assert jkb.arity == 8
+    np.testing.assert_array_equal(kb.tribvh.tri_order, np.asarray(jkb.tribvh.tri_order))
+    for f in ("node_rows", "tri_rows"):
+        a, b = getattr(kb, f).numpy(), np.asarray(getattr(jkb, f))
+        assert a.shape == b.shape and a.tobytes() == b.tobytes(), f
+    assert kb.card.nodes.shape[2] == 8
+
+
+def test_arity_8_and_near_two_pass(mini_scene):
+    """--arity 8 --near 0.1 on the CPU (plain K1): the record's keys, and
+    the two-pass t equal to the single pass bit for bit where no ray
+    overflows the second pass's lanes; a bound small enough that most
+    rays miss the first pass overflows, and says so."""
+    before = dict(wide.LAUNCHES)
+    res = kernel_bench.main(["--device", "cpu", "--scene", mini_scene, "--rows", "4",
+                             "--row0", "540", "--reps", "1", "--arity", "8", "--near", "0.1"])
+    assert wide.LAUNCHES == before
+    assert res["arity"] == 8
+    n = 4 * kernel_bench.WIDTH
+    assert res["near2_capn"] == max(1024, (n // 4 + 1023) // 1024 * 1024)
+    assert res["near2_closest_ms"] > 0.0 and res["near2_closest_mrays"] > 0.0
+    assert 0.0 <= res["near2_miss_frac"] <= 1.0 and 0.0 < res["near2_prim_agree"] <= 1.0
+    assert res["near2_overflow"] == (res["near2_miss_frac"] * n > res["near2_capn"])
+    assert res["near2_overflow"] or res["near2_t_bit_equal"]
+
+    r = kernel_bench.load_renderer(mini_scene, "cpu")
+    kb = kernel_bench.rebuild(r, arity=8)
+    o, d = kernel_bench.bench_batches(r, kb, rows=4, row0=540)["bounce"]
+    t_max = r.config.t_max
+    t1, p1, _, _ = wide.traverse_packets(kb, o, d, torch.zeros(n), t_max,
+                                         torch.ones(n, dtype=torch.bool), need_uv=False)
+    # the mini scene is open, so ~40% of the bounce rays escape and the
+    # whole batch overflows the n/4 lanes: the no-overflow case takes the
+    # first 4,096 rays that hit, still in sort order, with r0 at the 85th
+    # percentile of their t (15% go to the second pass)
+    hit = torch.nonzero(p1 >= 0)[:, 0][:4096]
+    o, d, t1, p1 = o[hit], d[hit], t1[hit], p1[hit]
+    r0 = float(torch.quantile(t1.double(), 0.85))
+    for r0, overflows in ((r0, False), (r0 * 1e-3, True)):
+        t, p, nmiss, capn = kernel_bench.near_pass(kb, o, d, r0, t_max)
+        assert (int(nmiss) > capn) == overflows, (r0, int(nmiss), capn)
+        if not overflows:
+            assert int(nmiss) > 0
+            assert torch.equal(t.view(torch.int32), t1.view(torch.int32))
+            assert bool((t[p != p1] == t1[p != p1]).all())
+        else:
+            # the rays past the second pass's lanes are lost
+            assert not torch.equal(t.view(torch.int32), t1.view(torch.int32))

@@ -102,3 +102,8 @@ class RenderConfig:
     @property
     def tan_half_fov(self) -> float:
         return math.tan(math.radians(self.fov_degrees) / 2.0)
+
+    @property
+    def aspect_ratio(self) -> float:
+        """aspectRatio push constant (Raytracer.cpp:319-320)."""
+        return self.width / self.height

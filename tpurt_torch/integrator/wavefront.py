@@ -48,6 +48,9 @@ from tpurt_torch.scene.types import NO_TEXTURE
 from tpurt_torch.utils.profiling import annotate
 
 _ENV_PDF = 1.0 / (2.0 * B.PI)
+# camera hit + up to 7 bounces (the reference's recursion cap);
+# cfg.max_depth sets the waves a path may take
+MAX_WAVES = 8
 
 
 class RayStats(NamedTuple):

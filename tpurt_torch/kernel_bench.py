@@ -2,8 +2,9 @@
 benchmarks/kernel_bench.py).
 
     python -m tpurt_torch.kernel_bench [--reps 5] [--json out.json]
-        [--rows 256] [--row0 400] [--group G] [--nosort] [--octet N]
-        [--stepcost K] [--rope] [--device cuda] [--scene scene.gltf]
+        [--rows 256] [--row0 400] [--group G] [--arity A] [--nosort]
+        [--octet N] [--near FRAC] [--stepcost K] [--rope] [--device cuda]
+        [--scene scene.gltf]
 
 Times the wide kernels on the three ray batches that set frame time, on
 the bench's Sponza-like interior (215,296 triangles) seen by the bench
@@ -28,7 +29,17 @@ function's. `--stepcost K` runs the step-cost instrument K6 on the sorted
 bounce batch: exactly K steps per ray, once per configuration (full,
 -leaf, -push, -extract, -box, each dropping one phase more), and prints
 each one's ms and ns per ray-step and the per-phase differences.
-`--group G` rebuilds the triangle BVH at leaf size G first. `--rope`
+`--group G` rebuilds the triangle BVH at leaf size G first, and
+`--arity A` (8 or 16) the wide tables at A slots per node. `--near FRAC`
+also times tpurt's two-pass, distance-bounded closest trace on the
+sorted bounce batch: K1 up to r0 = FRAC x the root box's diagonal, then
+the misses, moved to the front by a stable key into the first
+max(1024, ceil(n/4 / 1024) x 1024) lanes, again with t_min = r0 (1 -
+1e-6), and the results put back in ray order; it prints
+`near2_closest_ms`, `near2_closest_mrays`, `near2_miss_frac`,
+`near2_prim_agree` (prim against the single pass) and `near2_overflow`
+(more misses than lanes), and `near2_t_bit_equal`, which must hold
+unless it overflowed. `--rope`
 also times the rope kernels over the rope tables of a G = 8 triangle BVH
 of the scene, as the rope render builds them (no mask column, rays not
 sorted): K3 on the camera, unsorted bounce and unsorted shadow rays (the
@@ -42,9 +53,8 @@ the path).
 
 tpurt's TPU step variants (`--dual`, `--pair`, `--descend`, `--sup`,
 `--race-sup`) and its collapse-mode race are TPU mechanism and are not
-offered; `--arity` and `--near` are not ported yet. The run is on the
-card unless `--device cpu` is given (the plain versions then run, and
-the times are the CPU's).
+offered. The run is on the card unless `--device cpu` is given (the
+plain versions then run, and the times are the CPU's).
 """
 
 from __future__ import annotations
@@ -60,7 +70,7 @@ import numpy as np
 import torch
 
 from tpurt_torch.bvh.lbvh import build_triangle_bvh
-from tpurt_torch.bvh.traverse import _octant_morton_key, _sort_rays
+from tpurt_torch.bvh.traverse import _octant_morton_key, _sort_rays, _unsort
 from tpurt_torch.camera import Camera, camera_rays_for_rows
 from tpurt_torch.config import RenderConfig, SphereLight
 from tpurt_torch.integrator.wavefront import tile_pack, tile_shape
@@ -98,6 +108,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--group", type=int, default=0,
                     help="rebuild the triangle BVH at this leaf group size "
                          "(0 = the renderer's choice)")
+    ap.add_argument("--arity", type=int, default=0, choices=(0, 8, 16),
+                    help="rebuild the wide tables at this branching factor "
+                         "(0 = the renderer's, 16)")
+    ap.add_argument("--near", type=float, default=0.0,
+                    help="also time the two-pass distance-bounded closest trace "
+                         "with r0 = NEAR x the scene's diagonal (e.g. 0.1)")
     ap.add_argument("--nosort", action="store_true",
                     help="also time the incoherent batch unsorted")
     ap.add_argument("--octet", type=int, default=0, choices=(0,) + wide.OCTET_WALKS,
@@ -145,14 +161,19 @@ def load_renderer(scene_path, device) -> Renderer:
                                   device=device)
 
 
-def rebuild_group(r: Renderer, group: int) -> wide.WideKernelBVH:
-    """The wide tables of a triangle BVH with leaves of `group` triangles."""
+def rebuild(r: Renderer, group: int = 0, arity: int = 0) -> wide.WideKernelBVH:
+    """The renderer's wide tables rebuilt: the triangle BVH at leaves of
+    `group` triangles (0 keeps the renderer's), the tables at `arity`
+    slots per node (0: wide.ARITY)."""
     ds = r.device_scene
     tri = ds.tri_pos.cpu().numpy()
-    return wide.make_wide_kernel_bvh(build_triangle_bvh(tri, group_size=group), tri,
+    tribvh = r.bvh.tribvh
+    if group and group != tribvh.group_size:
+        tribvh = build_triangle_bvh(tri, group_size=group, device=r.device)
+    return wide.make_wide_kernel_bvh(tribvh, tri,
                                      tri_alpha_mask=ds.tri_alpha_mask if r.has_alpha else None,
                                      tri_alpha_opaque=ds.tri_alpha_opaque if r.has_alpha else None,
-                                     device=r.device)
+                                     arity=arity or wide.ARITY, device=r.device)
 
 
 def bench_batches(r: Renderer, kbvh: wide.WideKernelBVH, rows: int = 256, row0: int = 400,
@@ -273,6 +294,61 @@ def rope_timings(r: Renderer, b: dict, reps: int) -> dict:
     return out
 
 
+def near_pass(kbvh: wide.WideKernelBVH, o, d, r0: float, t_max: float):
+    """tpurt's two-pass closest trace (benchmarks/kernel_bench.py:219):
+    K1 with t_limit = r0; the misses, moved to the front by a stable key,
+    take the first `capn` lanes of a second K1 pass from t_min = r0 (1 -
+    1e-6); its results go back to ray order. Exact unless more than
+    `capn` rays miss. Returns (t, prim, misses, capn)."""
+    n = o.shape[0]
+    dev = o.device
+    capn = max(1024, (n // 4 + 1023) // 1024 * 1024)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    t1, p1, _, _ = wide.traverse_packets(kbvh, o, d, torch.zeros(n, dtype=torch.float32,
+                                                                  device=dev),
+                                         r0, active, need_uv=False)
+    miss = p1 < 0
+    key = torch.where(miss, torch.arange(n, device=dev), torch.full_like(p1, 0x7FFFFFFF,
+                                                                         dtype=torch.int64))
+    order, (os_, ds_, ms) = _sort_rays(key, (o, d, miss))
+    t2, p2, _, _ = wide.traverse_packets(
+        kbvh, os_[:capn], ds_[:capn],
+        torch.full((capn,), r0 * (1.0 - 1e-6), dtype=torch.float32, device=dev),
+        t_max, ms[:capn], need_uv=False)
+    pad = n - capn
+    t2 = torch.cat([t2, torch.full((pad,), float(np.float32(t_max)), dtype=torch.float32,
+                                   device=dev)])
+    p2 = torch.cat([p2, torch.full((pad,), -1, dtype=torch.int32, device=dev)])
+    t2, p2 = _unsort(order, (t2, p2))
+    return torch.where(miss, t2, t1), torch.where(miss, p2, p1), miss.sum(), capn
+
+
+def near_timings(kbvh: wide.WideKernelBVH, o, d, frac: float, reps: int,
+                 t_max: float) -> dict:
+    """near_pass with r0 = frac x the root box's diagonal on (o, d),
+    timed and held against the single K1 pass: the records of tpurt's
+    `--near`, plus r0, the overflow and whether t is bit-equal."""
+    n = o.shape[0]
+    dev = o.device
+    lo, hi = kbvh.root_bounds()
+    r0 = frac * float(torch.linalg.norm(hi - lo))
+    t, p, nmiss, capn = near_pass(kbvh, o, d, r0, t_max)
+    t1, p1, _, _ = wide.traverse_packets(kbvh, o, d, torch.zeros(n, dtype=torch.float32,
+                                                                 device=dev),
+                                         t_max, torch.ones(n, dtype=torch.bool, device=dev),
+                                         need_uv=False)
+    nmiss = int(nmiss)
+    ms = median_ms(lambda: near_pass(kbvh, o, d, r0, t_max), reps, dev)
+    out = {"near2_r0": r0, "near2_capn": capn, "near2_closest_ms": ms,
+           "near2_closest_mrays": n / ms / 1e3, "near2_miss_frac": nmiss / n,
+           "near2_prim_agree": float((p == p1).float().mean()),
+           "near2_overflow": nmiss > capn,
+           "near2_t_bit_equal": bool(torch.equal(t.view(torch.int32), t1.view(torch.int32)))}
+    print(f"near2: r0={r0:.2f} miss_frac={nmiss / n:.3f} overflow={out['near2_overflow']} "
+          f"prim_agree={out['near2_prim_agree']:.4f}", flush=True)
+    return out
+
+
 def median_ms(fn, reps: int, device: torch.device) -> float:
     """Median time of `fn` over `reps` runs after one warm-up: CUDA events
     on the card, the host clock on the CPU."""
@@ -327,9 +403,11 @@ def main(argv=None) -> dict:
     if not isinstance(kbvh, wide.WideKernelBVH):
         raise RuntimeError(f"the scene took the rope path ({type(kbvh).__name__}); "
                            "kernel_bench times the wide kernels")
-    if args.group and kbvh.group_size != args.group:
-        kbvh = rebuild_group(r, args.group)
-        print(f"rebuilt the tables at G={kbvh.group_size}: W={kbvh.node_rows.shape[1]}")
+    if (args.group and kbvh.group_size != args.group) or (args.arity and
+                                                          kbvh.arity != args.arity):
+        kbvh = rebuild(r, args.group, args.arity)
+        print(f"rebuilt the wide tables at arity {kbvh.arity}, G={kbvh.group_size}: "
+              f"W={kbvh.node_rows.shape[1]}")
     tris = int(r.device_scene.tri_pos.shape[0])
     kernels = f"K5 octet={args.octet}" if args.octet else "K1/K2"
     print(f"scene: {tris} tris, G={kbvh.group_size}, kernels {kernels}, "
@@ -343,7 +421,7 @@ def main(argv=None) -> dict:
 
     far = torch.full((n,), float(np.float32(t_max)), dtype=torch.float32, device=dev)
     results = {"device": card_name(dev), "kernels": kernels, "rays": n, "triangles": tris,
-               "group": kbvh.group_size}
+               "group": kbvh.group_size, "arity": kbvh.arity}
     timed = [("coherent_closest", *b["camera"], far, False),
              ("incoherent_closest", *b["bounce"], far, False)]
     if args.nosort:
@@ -373,6 +451,8 @@ def main(argv=None) -> dict:
                                            occlusion=occlusion, all_definite=not r.has_alpha)
             results[f"{name}_union_bound_ms"] = u_ms
             results[f"{name}_union_bound_by"] = u_by
+    if args.near > 0:
+        results.update(near_timings(kbvh, *b["bounce"], args.near, args.reps, t_max))
     if args.rope:
         results.update(rope_timings(r, b, args.reps))
     if args.stepcost:

@@ -1,7 +1,8 @@
 """Ray-primitive intersection math over flat ray arrays (the counterpart
 of tpurt/kernels/intersect.py): Moller-Trumbore triangles with the
-Vulkan barycentric convention, the reference's q-form sphere test, and
-the safe reciprocal direction used by the slab tests."""
+Vulkan barycentric convention, the reference's q-form sphere test, the
+AABB slab test, and the safe reciprocal direction used by the slab
+tests."""
 
 from __future__ import annotations
 
@@ -109,6 +110,18 @@ def intersect_spheres(o, d, lights, t_min, t_max):
     ts = torch.stack(ts, dim=0)
     t_best, best = torch.min(ts, dim=0)
     return torch.isfinite(t_best), t_best, best.to(torch.int32)
+
+
+def ray_aabb(o, inv_d, box_min, box_max, t_min, t_max):
+    """Slab test over (N, 3) boxes (tpurt/kernels/intersect.py:105), in
+    tpurt's expression order. Returns (hit, entry distance)."""
+    t0 = (box_min - o) * inv_d
+    t1 = (box_max - o) * inv_d
+    tn = torch.minimum(t0, t1)
+    tf = torch.maximum(t0, t1)
+    t_near = torch.maximum(torch.amax(tn, dim=-1), torch.as_tensor(t_min).to(tn))
+    t_far = torch.minimum(torch.amin(tf, dim=-1), torch.as_tensor(t_max).to(tf))
+    return t_near <= t_far, t_near
 
 
 def safe_inv_dir(d):

@@ -4,7 +4,9 @@ counterpart of tpurt/native.py.
 The port compiles the same C++ source with g++ into its own build
 directory (tpurt_torch/_build/, ignored by git); it never writes
 native/libtpurt_native.so, which belongs to tpurt. There is no numpy
-fallback: if the library does not build, the call raises.
+fallback: if the library does not build, the call raises. `available()`
+says whether it builds and loads; bvh/lbvh.py then builds the triangle
+BVH on the device instead, as tpurt does.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ _SO = os.path.join(BUILD_DIR, "libtpurt_native.so")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+_FAILED: Optional[str] = None  # why the library did not build or load
 
 
 def build(force: bool = False) -> str:
@@ -70,6 +73,22 @@ def get_lib() -> ctypes.CDLL:
         lib.tpurt_sah_build.restype = ctypes.c_int
         _LIB = lib
         return _LIB
+
+
+def available() -> bool:
+    """Whether the library builds and loads (tpurt/native.py::available).
+    A failure is remembered: the build is not retried in this process."""
+    global _FAILED
+    if _FAILED is None:
+        try:
+            get_lib()
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            _FAILED = f"{type(e).__name__}: {str(e).splitlines()[0] if str(e) else ''}"
+    return _FAILED is None
+
+
+def unavailable_reason() -> Optional[str]:
+    return _FAILED
 
 
 def _ptr(arr, ctype):

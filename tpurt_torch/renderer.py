@@ -74,7 +74,8 @@ class Renderer:
         tri_np = ds.tri_pos.cpu().numpy()
         if bvh is None:
             t0 = time.perf_counter()
-            bvh = build_triangle_bvh(tri_np, group_size=pick_group_size_wide(tri_np.shape[0]))
+            bvh = build_triangle_bvh(tri_np, group_size=pick_group_size_wide(tri_np.shape[0]),
+                                     device=self.device)
             self.timings["sah_s"] = time.perf_counter() - t0
             if wide_supported(bvh):
                 t0 = time.perf_counter()
