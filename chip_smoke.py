@@ -125,17 +125,53 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            alpha-tested mini Sponza in exact mode (4 spp, relative RMSE <
            0.01, has_alpha); the oracle's images on the card, production
            launching K1 and K2; seconds per sample of both in each case
+  cache    the scene cache on the bench scene in a fresh directory: a
+           cold Renderer.from_gltf (seconds of load, build, pack, save), a
+           warm one, every DeviceScene and BVH array of the warm renderer
+           equal to the cold one's (card tables and bounds included), one
+           sample of each, bit-equal; then a `tri` artifact (a renderer
+           built with bvh=<TriBVH, G=8>, saved under the scene's key): its
+           warm renderer takes the rope path, launches K3 and neither K1
+           nor K2, and gives the cold rope renderer's image bit for bit
+  viewer   viewer.serve(block=False) on the card with the box at 160x120:
+           frames advance, a key move resets the accumulation and moves
+           the camera, /frame.png is a PNG, stop() returns within 10 s and
+           joins the render worker; K1/K2 launch
+  shard    tpurt_torch.parallel on the bench renderer at 1920x1080 with
+           the mesh over the one card four times: a 4x1 (tile) launch of
+           sample 0 equal bit for bit to the single-device render in
+           270-row bands, with equal ray counts; a 2x2 launch against the
+           mean of the single-device samples 0 and 1 (median |diff| <
+           1e-5, equal ray counts); three ShardedRenderer steps on a 1x2
+           mesh; K1/K2 launches and seconds per launch beside the
+           `render` phase's s/sample
+  recovery a child process (chip_smoke.py --recovery SCENE): the bench
+           renderer at 1920x1080, the peak memory of a whole-frame sample
+           and of one in 540-row bands, an unconstrained 2-spp render;
+           then set_per_process_memory_fraction between the two peaks and
+           the same 2-spp render with chunk_rows=0, which must retry at
+           least one real torch.cuda.OutOfMemoryError, end with fewer
+           than 1080 rows per band and lie within RMSE 1e-5 of the
+           unconstrained render (bit equality printed); both peaks, the
+           fraction, the retries and the seconds. No fraction between the
+           peaks fails the phase
   cli      the user entry point, `python -m tpurt_torch.cli`, as child
            processes from the repo root, on the same scene file with the
-           bench's camera and lights at 1920x1080: A renders 4 spp with a
-           checkpoint every 2 spp, --save-accum, --validate and
-           --debug-nans; B renders 2 spp into a checkpoint that C resumes
-           to 4 spp; C's accumulation must be A's bit for bit and the PNGs
-           must exist. Then `info` (its triangle count must be the glTF's,
-           215,284, which the device scene pads to the scene phase's
-           215,296), a 2-frame --orbit and a --trace run at 640x480 (the
-           trace file must exist), and `view`, which must exit with 2.
-           Each process's seconds and A's s/sample
+           bench's camera and lights at 1920x1080, sharing a fresh scene
+           cache (A starts cold and saves it, the rest start warm): A
+           renders 4 spp with a checkpoint every 2 spp, --save-accum,
+           --validate and --debug-nans; B renders 2 spp into a checkpoint
+           that C resumes to 4 spp; C's accumulation must be A's bit for
+           bit and the PNGs must exist. Then `info` (its triangle count
+           must be the glTF's, 215,284, which the device scene pads to the
+           scene phase's 215,296), a 2-frame --orbit and a --trace run at
+           640x480 (the trace file must exist), `render --shard 1x1` at
+           640x480, 2 spp, whose accumulation must be the same render's
+           without --shard bit for bit, and `view` at 320x240 on a free
+           port: /, /frame.png, /status, then /key?k=w must move the
+           camera's position only and /look?dx=80&dy=-40 its direction
+           only (/camera); SIGINT ends it with exit code 0. Each
+           process's seconds and A's s/sample
   bench    `python -m tpurt_torch.bench` as a child process with
            BENCH_SAMPLES=3: its last line must be a final record with
            samples_done >= 1, value > 0 and rmse_vs_golden < 1e-5, and its
@@ -145,10 +181,12 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
 the {"kernels": [...]} line (K1-K6; K1-K3 with their whole-frame waves
-and their share of a traced sample, K1/K2 with their arity-8 and
-device-LBVH runs), and last {"ok": true, "device":
-{...}}. A watchdog ends the run with exit code 1, naming the phase it was
-in, after 600 seconds, and kills a child process it is waiting for. Needs
+and their share of a traced sample, K1/K2 with their arity-8,
+device-LBVH, cache, viewer and shard runs, K3 with its warm `tri`
+start), and last {"ok": true, "device": {...}}. The smoke turns the
+scene cache off (TPURT_SCENE_CACHE_DIR=0) except where a phase sets up
+its own. A watchdog ends the run with exit code 1, naming the phase it
+was in, after 600 seconds, and kills a child process it is waiting for. Needs
 torch with CUDA, numpy, nvcc and g++; no JAX, no Pillow, no prebuilt
 artefact.
 """
@@ -397,6 +435,40 @@ def annotation_table(prof, wall_s):
             "most_host_ms": max(scopes, key=lambda k: scopes[k]["host_ms"])}
 
 
+def profiled_step(rr, checks):
+    """One rr.step() under torch.profiler (CPU and CUDA activities), the
+    launch counters zeroed just before: (trace_summary of `checks`'
+    kernels, the counted launches, wall seconds, the attempts discarded).
+    `checks` maps kernel ids (kernel_of) to counter names, and each traced
+    count must equal its counter. A trace that misses a launch the
+    counters saw has lost device records and is discarded: the step is
+    traced once more, and both counts of the lost attempt are returned."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    discarded = []
+    for _ in range(2):
+        zero_launch_counts()
+        done = rr.sample_count
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rr.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        traced = launch_counts()
+        if rr.sample_count != done + 1:
+            raise RuntimeError(f"the traced step rendered {rr.sample_count - done} samples")
+        summary = trace_summary(prof, wall, tuple(checks))
+        del prof
+        lost = {k: {"traced": summary[k]["launches"], "counted": traced[m]}
+                for k, m in checks.items() if summary[k]["launches"] != traced[m]}
+        if not lost:
+            return summary, traced, wall, discarded
+        discarded.append(lost)
+    raise RuntimeError(f"kernels traced against launches counted, in both traces: {discarded}")
+
+
 def timed_kernel(kern):
     """Median CUDA-event ms of REPS runs of `kern`."""
     return median([cuda_ms(kern)[0] for _ in range(REPS)])
@@ -439,8 +511,11 @@ def cli_phase(info, scene, triangles, padded, work, platform="cuda", res="1920x1
     every PNG must exist. Then `info` (its triangle count must be the
     scene's `triangles`, which the device scene pads to `padded`, a
     multiple of 128), a 2-frame --orbit, a --trace run whose Chrome trace
-    must exist, and `view`, which must exit with 2. Records each process's
-    seconds and the s/sample A printed."""
+    must exist, `render --shard 1x1` at 640x480 whose accumulation must be
+    the same render's without --shard, bit for bit, and `view`
+    (view_process). The children share a fresh scene cache: A starts cold
+    and saves it, the others start warm. Records each process's seconds
+    and the s/sample A printed."""
     import numpy as np
 
     base = ["tpurt_torch.cli", "--platform", platform]
@@ -464,17 +539,28 @@ def cli_phase(info, scene, triangles, padded, work, platform="cuda", res="1920x1
         "trace": [*base, "render", scene, "--res", small_res, *look, "--spp", "1",
                   "-o", os.path.join(work, "trace.png"), "--trace",
                   os.path.join(work, "trace")],
-        "view": [*base, "view", scene],
     }
+    acc_shard, acc_plain = (os.path.join(work, f"{k}_acc.npz") for k in ("shard", "plain"))
+    for name, acc, extra in (("shard", acc_shard, ["--shard", "1x1"]), ("plain", acc_plain, [])):
+        runs[name] = [*base, "render", scene, "--res", small_res, *look, "--spp", "2",
+                      "-o", os.path.join(work, f"{name}.png"), "--save-accum", acc, *extra]
+    env = {"TPURT_SCENE_CACHE_DIR": os.path.join(work, "cli_cache")}
     seconds, outs = {}, {}
     for name, argv in runs.items():
-        rc, out, err, secs = run_entry(argv)
+        rc, out, err, secs = run_entry(argv, env=env)
         seconds[name], outs[name] = secs, out
-        if rc != (2 if name == "view" else 0):
+        if rc != 0:
             raise RuntimeError(f"cli {name} exited with {rc}: {err[-1500:]}")
-        if name == "view" and "not ported yet" not in err:
-            raise RuntimeError(f"cli view: {err[-500:]}")
+    view_process(info, scene, look, env, platform)
+    seconds["view"] = info["view"]["seconds"]
     info.update(process_seconds=seconds)
+    sh, pl = np.load(acc_shard), np.load(acc_plain)
+    info["shard_1x1"] = dict(sample_count=int(sh["sample_count"]),
+                             bit_equal=sh["accum"].tobytes() == pl["accum"].tobytes(),
+                             sharded="sharding over mesh tile=1 x spp=1" in outs["shard"])
+    if not info["shard_1x1"]["bit_equal"] or not info["shard_1x1"]["sharded"] or \
+            int(sh["sample_count"]) != 2 or int(pl["sample_count"]) != 2:
+        raise RuntimeError(f"render --shard 1x1 against the plain render: {info['shard_1x1']}")
     m = re.search(r"\(([0-9.]+) s/sample\)", outs["a"])
     info["a_seconds_per_sample"] = float(m.group(1)) if m else None
     if "scene validation: ok" not in outs["a"] or "no non-finite pixels" not in outs["a"]:
@@ -606,6 +692,423 @@ def oracle_phase(info, dev, work, size=ORACLE_SIZE, cases=ORACLE_CASES):
     info.update(size=list(size), cases=out)
 
 
+def _leaves(prefix, x):
+    """(name, value) of every tensor, array or number inside `x`, walking
+    NamedTuples and dataclasses."""
+    if hasattr(x, "_fields"):
+        for k in x._fields:
+            yield from _leaves(f"{prefix}.{k}", getattr(x, k))
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from _leaves(f"{prefix}.{f.name}", getattr(x, f.name))
+    else:
+        yield prefix, x
+
+
+def differing_leaves(a, b):
+    """Names of the leaves of `a` and `b` that differ in dtype, shape or
+    any bit ([] when all are equal)."""
+    import numpy as np
+    import torch
+
+    def host(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    la, lb = list(_leaves("", a)), list(_leaves("", b))
+    if [n for n, _ in la] != [n for n, _ in lb]:
+        return ["<fields>"]
+    bad = []
+    for (name, x), (_, y) in zip(la, lb):
+        x, y = host(x), host(y)
+        if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+            bad.append(name)
+    return bad
+
+
+def cache_phase(info, dev, path, cfg, camera, lights, work):
+    """The scene cache on the bench scene `path`, in a fresh directory: a
+    cold Renderer.from_gltf (its seconds split into load, build, pack and
+    save), a warm one (seconds), every DeviceScene and BVH array of the
+    warm renderer equal to the cold one's, one sample of each with equal
+    accumulations. Then a `tri` artifact, saved under the scene's key from
+    a renderer built with bvh=<TriBVH, G=8>: its warm renderer must take
+    the rope path, launch K3 and neither K1 nor K2, and give the cold rope
+    renderer's image, bit for bit. The cache is off again afterwards."""
+    import torch
+
+    from tpurt_torch.bvh.lbvh import build_triangle_bvh
+    from tpurt_torch.kernels import wide
+    from tpurt_torch.kernels.experimental import rope
+    from tpurt_torch.renderer import Renderer
+    from tpurt_torch.scene import cache as scache
+    from tpurt_torch.scene.device import build_device_scene
+    from tpurt_torch.scene.gltf import camera_for_render, load_gltf
+
+    cdir = os.path.join(work, "scene_cache")
+    os.environ["TPURT_SCENE_CACHE_DIR"] = cdir
+
+    def start():
+        t0 = time.perf_counter()
+        rr = Renderer.from_gltf(path, config=cfg, camera=camera, lights=lights, device=dev)
+        torch.cuda.synchronize()
+        return rr, round(time.perf_counter() - t0, 3)
+
+    def one_sample(rr):
+        zero_launch_counts()
+        rr.render(1)
+        return launch_counts()
+
+    try:
+        cold, cold_s = start()
+        files = os.listdir(cdir)
+        if len(files) != 1 or not files[0].endswith(".npz"):
+            raise RuntimeError(f"the cold start left {files} in the cache")
+        warm, warm_s = start()
+        if set(warm.timings) != {"cache_load_s"} or not isinstance(warm.bvh, wide.WideKernelBVH):
+            raise RuntimeError(f"the second start was not a warm wide start: {warm.timings}")
+        differ = (differing_leaves(cold.device_scene, warm.device_scene)
+                  + differing_leaves(cold.bvh, warm.bvh) + differing_leaves(cold.camera,
+                                                                            warm.camera))
+        one_sample(cold)
+        launches = one_sample(warm)
+        info.update(cold_s=cold_s, warm_s=warm_s,
+                    cold_timings={k: round(v, 3) for k, v in cold.timings.items()},
+                    warm_timings={k: round(v, 3) for k, v in warm.timings.items()},
+                    artifact_mb=round(os.path.getsize(os.path.join(cdir, files[0])) / 2**20, 2),
+                    arrays_differ=differ, sample_bit_equal=torch.equal(cold.accum, warm.accum),
+                    warm_launches=launches)
+        if differ or not info["sample_bit_equal"]:
+            raise RuntimeError(f"the warm start is not the cold one: arrays {differ}, "
+                               f"sample bit-equal {info['sample_bit_equal']}")
+        if min(launches["closest"], launches["occlusion"]) <= 0:
+            raise RuntimeError(f"the warm wide sample did not launch K1 and K2: {launches}")
+        del cold, warm
+
+        t0 = time.perf_counter()
+        sd = load_gltf(path)
+        ds = build_device_scene(sd, lights=lights, device=dev)
+        tribvh = build_triangle_bvh(ds.tri_pos.cpu().numpy(), group_size=8, device=dev)
+        rope_cold = Renderer(ds, config=cfg, camera=camera, device=dev, bvh=tribvh)
+        key = scache.scene_cache_key([path], lights, wide.ARITY, scache.backend_name(dev))
+        scache.save_artifacts(os.path.join(cdir, key + ".npz"), rope_cold.device_scene,
+                              rope_cold.bvh, camera=camera_for_render(sd.camera))
+        tri_cold_s = round(time.perf_counter() - t0, 3)
+        rope_warm, tri_warm_s = start()
+        if not isinstance(rope_warm.bvh, rope.KernelBVH):
+            raise RuntimeError(f"the tri artifact loaded as a {type(rope_warm.bvh).__name__}")
+        one_sample(rope_cold)
+        tri_launches = one_sample(rope_warm)
+        tri_differ = (differing_leaves(rope_cold.bvh.tribvh, rope_warm.bvh.tribvh)
+                      + differing_leaves(rope_cold.bvh.card, rope_warm.bvh.card))
+        info.update(tri_cold_build_and_save_s=tri_cold_s, tri_warm_s=tri_warm_s,
+                    tri_arrays_differ=tri_differ,
+                    tri_sample_bit_equal=torch.equal(rope_cold.accum, rope_warm.accum),
+                    tri_warm_launches=tri_launches)
+        if tri_launches["rope_closest"] <= 0 or tri_launches["closest"] or \
+                tri_launches["occlusion"] or tri_differ or not info["tri_sample_bit_equal"]:
+            raise RuntimeError(f"the tri artifact's warm start: launches {tri_launches}, arrays "
+                               f"{tri_differ}, sample bit-equal {info['tri_sample_bit_equal']}")
+    finally:
+        os.environ["TPURT_SCENE_CACHE_DIR"] = "0"
+
+
+def viewer_phase(info, dev, work):
+    """viewer.serve(block=False) on the card with a small renderer of the
+    box: frames must advance, a key move must reset the accumulation and
+    move the camera, /frame.png must be a PNG, and stop() must return
+    within 10 s with the render worker joined."""
+    import urllib.request
+
+    import numpy as np
+
+    from tpurt_torch import viewer
+    from tpurt_torch.camera import Camera
+    from tpurt_torch.config import RenderConfig, SphereLight
+    from tpurt_torch.renderer import Renderer
+    from tpurt_torch.scene.procedural import write_box_scene
+
+    r = Renderer.from_gltf(write_box_scene(os.path.join(work, "viewer_box.gltf")),
+                           config=RenderConfig(width=160, height=120, max_samples=1 << 20),
+                           camera=Camera.from_angles([1.5, 1.2, 2.0],
+                                                     float(np.arctan2(-1.5, -2.0)), -0.45),
+                           lights=[SphereLight((2.0, 2.0, 2.0), 0.3, (1.0, 0.9, 0.8), 50.0)],
+                           device=dev)
+    zero_launch_counts()
+    server, state, stop = viewer.serve(r, "127.0.0.1", 0, block=False)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    stopped = False
+    try:
+        def get(p):
+            return urllib.request.urlopen(base + p, timeout=30).read()
+
+        def wait_for(n, limit=30.0):
+            t0 = time.perf_counter()
+            while r.sample_count < n and time.perf_counter() - t0 < limit:
+                time.sleep(0.02)
+            return r.sample_count
+
+        t0 = time.perf_counter()
+        first = wait_for(1)
+        t1 = time.perf_counter()
+        before = wait_for(first + 16)
+        rate = (before - first) / max(time.perf_counter() - t1, 1e-9)
+        pos = r.camera.position.cpu().numpy().copy()
+        get("/key?k=w")
+        after_key = r.sample_count
+        moved = not np.allclose(pos, r.camera.position.cpu().numpy())
+        png = get("/frame.png")
+        again = wait_for(after_key + 4)
+        info.update(first_frame_s=round(t1 - t0, 3), frames_before_key=before,
+                    samples_per_s=round(rate, 2), count_after_key=after_key,
+                    camera_moved=moved, count_later=again, png_bytes=len(png),
+                    status=get("/status").decode(), generation=state.gen)
+        t0 = time.perf_counter()
+        stop()
+        stopped = True
+        info["stop_s"] = round(time.perf_counter() - t0, 3)
+    finally:
+        if not stopped:
+            stop()
+    info["launches"] = launch_counts()
+    alive = any(t.name == viewer.WORKER_NAME for t in threading.enumerate())
+    if first < 1 or before < first + 16 or not moved or after_key >= before or \
+            again < after_key + 4 or png[:4] != b"\x89PNG" or info["stop_s"] > 10 or alive:
+        raise RuntimeError(f"viewer: {info}, worker alive {alive}")
+    if min(info["launches"]["closest"], info["launches"]["occlusion"]) <= 0:
+        raise RuntimeError(f"the viewer's frames did not launch K1 and K2: {info['launches']}")
+
+
+def shard_phase(info, dev, r, render_s_per_sample):
+    """tpurt_torch.parallel on the bench renderer `r` (1920x1080) with the
+    mesh over the one card four times: a 4x1 tile launch of sample 0
+    against the single-device render in 270-row bands (bit for bit, equal
+    ray counts); a 2x2 launch against the mean of the single-device
+    samples 0 and 1 (tpurt's bound, median |diff| < 1e-5; equal ray
+    counts); three ShardedRenderer steps on a 1x2 mesh. K1/K2 launches
+    and seconds per launch beside the `render` phase's s/sample."""
+    import numpy as np
+    import torch
+
+    from tpurt_torch.integrator.wavefront import render_sample_stats
+    from tpurt_torch.parallel import ShardedRenderer, make_mesh, render_sample_stats_sharded
+    from tpurt_torch.renderer import Renderer
+
+    cfg = r.config
+    kw = dict(width=cfg.width, height=cfg.height, cfg=cfg, has_alpha=r.has_alpha,
+              tex_flags=r.tex_flags)
+
+    def sharded(n_tile, n_spp):
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        out = render_sample_stats_sharded(r.device_scene, r.bvh, r.camera, 0,
+                                          make_mesh(n_tile, n_spp, devices=[dev] * 4), **kw)
+        torch.cuda.synchronize()
+        return out, round(time.perf_counter() - t0, 3), launch_counts()
+
+    (tiles, delivered, stats), tile_s, tile_launches = sharded(4, 1)
+    ref, ref_stats = render_sample_stats(r.device_scene, r.bvh, r.camera, 0,
+                                         chunk_rows=cfg.height // 4, **kw)
+    tile_equal = torch.equal(tiles, ref)
+    del tiles, ref
+
+    (mixed, delivered22, stats22), mixed_s, mixed_launches = sharded(2, 2)
+    acc, total = None, np.zeros(2, np.float64)
+    for s in (0, 1):
+        img, st = render_sample_stats(r.device_scene, r.bvh, r.camera, s, **kw)
+        acc = img if acc is None else acc + img
+        total += (st.logical, st.physical)
+    mean = acc / 2
+    diff = (mixed[..., :3] - mean[..., :3]).abs().flatten()
+    med = float(diff.median())
+    mixed_equal = torch.equal(mixed, mean)
+    del mixed, mean, acc, diff
+
+    sr_r = Renderer(r.device_scene, config=cfg, camera=r.camera, device=dev, bvh=r.bvh)
+    sr = ShardedRenderer(sr_r, make_mesh(1, 2, devices=[dev] * 2))
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        sr.step()
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    steps_launches = launch_counts()
+    nan_px = int(torch.isnan(sr_r.accum).any(dim=-1).sum())
+    info.update(tile_4x1=dict(seconds=tile_s, delivered=delivered, bit_equal_banded=tile_equal,
+                              rays_equal=stats == ref_stats, rays_physical=stats.physical,
+                              launches=tile_launches),
+                mixed_2x2=dict(seconds=mixed_s, delivered=delivered22, median_abs_diff=med,
+                               bit_equal=mixed_equal,
+                               rays_equal=(stats22.logical, stats22.physical) == tuple(total),
+                               launches=mixed_launches),
+                sharded_renderer_1x2=dict(steps=3, sample_count=sr_r.sample_count,
+                                          seconds_per_launch=round(steps_s / 3, 3),
+                                          nan_pixels=nan_px, launches=steps_launches),
+                render_phase_seconds_per_sample=render_s_per_sample)
+    if not tile_equal or stats != ref_stats or delivered != 1:
+        raise RuntimeError(f"4x1 tiles against the banded render: {info['tile_4x1']}")
+    if not med < 1e-5 or not info["mixed_2x2"]["rays_equal"] or delivered22 != 2:
+        raise RuntimeError(f"2x2 against the mean of samples 0 and 1: {info['mixed_2x2']}")
+    if sr_r.sample_count != 6 or nan_px:
+        raise RuntimeError(f"ShardedRenderer: {info['sharded_renderer_1x2']}")
+    for name in ("tile_4x1", "mixed_2x2", "sharded_renderer_1x2"):
+        got = info[name]["launches"]
+        if min(got["closest"], got["occlusion"]) <= 0:
+            raise RuntimeError(f"{name} did not launch K1 and K2: {got}")
+
+
+RECOVERY_BAND = 540
+
+
+def recovery_child(path):
+    """The `recovery` phase's child process (chip_smoke.py --recovery
+    SCENE): the bench renderer at 1920x1080 with chunk_rows=0; the peak
+    memory of one whole-frame sample and of one in 540-row bands; an
+    unconstrained 2-spp render; then the process's memory fraction set
+    between the two peaks and the same 2-spp render again, which must
+    retry at least one real torch.cuda.OutOfMemoryError. Prints one JSON
+    line and exits 0, or prints the error and exits 1."""
+    import numpy as np
+    import torch
+
+    from tpurt_torch import film
+    from tpurt_torch.camera import Camera
+    from tpurt_torch.config import RenderConfig, SphereLight
+    from tpurt_torch.integrator.wavefront import render_sample_stats
+    from tpurt_torch.renderer import Renderer
+
+    dev = torch.device("cuda", 0)
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_samples=2, chunk_rows=0)
+    r = Renderer.from_gltf(path, config=cfg, camera=Camera.from_angles(*CAMERA),
+                           lights=[SphereLight(*x) for x in LIGHTS], device=dev, cache=False)
+    kw = dict(width=WIDTH, height=HEIGHT, cfg=cfg, has_alpha=r.has_alpha, tex_flags=r.tex_flags)
+
+    def peak(chunk_rows):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        render_sample_stats(r.device_scene, r.bvh, r.camera, 0, chunk_rows=chunk_rows, **kw)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated(dev), torch.cuda.max_memory_reserved(dev))
+
+    resident = torch.cuda.memory_allocated(dev)
+    full_alloc, full_reserved = peak(0)
+    band_alloc, band_reserved = peak(RECOVERY_BAND)
+    t0 = time.perf_counter()
+    ref = r.render(2).clone()
+    ref_s = time.perf_counter() - t0
+    total = torch.cuda.get_device_properties(dev).total_memory
+    out = dict(resident_bytes=resident, full_frame_peak_bytes=full_alloc,
+               full_frame_peak_reserved_bytes=full_reserved,
+               band_peak_bytes=band_alloc, band_peak_reserved_bytes=band_reserved,
+               band_rows=RECOVERY_BAND, total_bytes=total, unconstrained_2spp_s=round(ref_s, 3))
+    # the limit sits between the band's reserved peak and the whole
+    # frame's allocated peak: the band fits, the whole frame cannot
+    if not band_reserved < full_alloc:
+        raise RuntimeError(f"no memory fraction separates the two peaks: the {RECOVERY_BAND}-row "
+                           f"band reserves {band_reserved} bytes, the whole frame allocates "
+                           f"{full_alloc}: {out}")
+    limit = (band_reserved + full_alloc) // 2
+    fraction = limit / total
+    retries = []
+    recover = r._recover_launch_failure
+
+    def counted(err):
+        retries.append(type(err).__name__)
+        recover(err)
+
+    r._recover_launch_failure = counted
+    r.reset()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(fraction, dev)
+    t0 = time.perf_counter()
+    got = r.render(2)
+    out.update(limit_bytes=limit, fraction=fraction, retries=retries,
+               constrained_2spp_s=round(time.perf_counter() - t0, 3),
+               chunk_rows_at_end=r._chunk_rows_now, sample_count=r.sample_count,
+               rmse=film.rmse(got, ref), bit_equal=torch.equal(got, ref),
+               nan_pixels=int(torch.isnan(got).any(dim=-1).sum()))
+    if "OutOfMemoryError" not in retries or not r._chunk_rows_now < HEIGHT or \
+            r.sample_count != 2 or not out["rmse"] < 1e-5 or out["nan_pixels"]:
+        raise RuntimeError(f"the constrained render did not recover as required: {out}")
+    emit({"recovery": out})
+
+
+def recovery_phase(info, path):
+    """Run recovery_child in a process of its own, so that the memory
+    fraction it sets ends with it; its JSON line goes on the phase's."""
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--recovery", path],
+                             cwd=ROOT, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             env=dict(os.environ, PYTHONPATH=ROOT))
+    _state["child"] = child
+    try:
+        out, err = child.communicate(timeout=240)
+    finally:
+        _state["child"] = None
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    rec = next((x["recovery"] for x in lines if "recovery" in x), None)
+    info.update(process_seconds=round(time.perf_counter() - t0, 3),
+                retry_lines=[x for x in err.splitlines() if "launch failed" in x])
+    if child.returncode != 0 or rec is None:
+        raise RuntimeError(f"the recovery child exited with {child.returncode}: "
+                           f"{(lines[-1] if lines else out[-800:])} {err[-1500:]}")
+    info.update(rec)
+
+
+def view_process(info, scene, look, env, platform="cuda"):
+    """`python -m tpurt_torch.cli view` on `scene` at 320x240 on a free
+    port, as a child process: /, /frame.png (a PNG), /status, then
+    /key?k=w must move the camera's position and not its direction, and
+    /look?dx=80&dy=-40 its direction and not its position. SIGINT ends
+    it; it must exit 0."""
+    import signal
+    import urllib.request
+
+    argv = [sys.executable, "-m", "tpurt_torch.cli", "--platform", platform, "view", scene,
+            "--res", "320x240", "--port", "0", *look]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(argv, cwd=ROOT, text=True, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, env=dict(os.environ, PYTHONPATH=ROOT, **env))
+    _state["child"] = child
+    err = ""
+    try:
+        line = child.stdout.readline()  # printed once the server listens
+        m = re.search(r"http://([0-9.]+):([0-9]+)/", line)
+        if not m:
+            child.kill()
+            raise RuntimeError(f"view printed {line!r}: {child.communicate()[1][-1500:]}")
+        base = f"http://{m.group(1)}:{m.group(2)}"
+
+        def get(p):
+            return urllib.request.urlopen(base + p, timeout=60).read()
+
+        up_s = round(time.perf_counter() - t0, 3)
+        page, png, status = get("/"), get("/frame.png"), get("/status").decode()
+        cams = [json.loads(get("/camera"))]
+        for p in ("/key?k=w", "/look?dx=80&dy=-40"):
+            get(p)
+            cams.append(json.loads(get("/camera")))
+    finally:
+        if child.returncode is None:
+            child.send_signal(signal.SIGINT)
+            try:
+                err = child.communicate(timeout=60)[1]
+            except subprocess.TimeoutExpired:
+                child.kill()
+                err = child.communicate()[1]
+        _state["child"] = None
+    moved = [{k: a[k] != b[k] for k in ("position", "direction")}
+             for a, b in zip(cams[:-1], cams[1:])]
+    info["view"] = dict(seconds=round(time.perf_counter() - t0, 3), listening_s=up_s,
+                        png_bytes=len(png), status=status, after_key=moved[0],
+                        after_look=moved[1], exit_code=child.returncode)
+    if b"tpurt" not in page or png[:4] != b"\x89PNG" or "spp" not in status or \
+            moved != [{"position": True, "direction": False},
+                      {"position": False, "direction": True}] or child.returncode != 0:
+        raise RuntimeError(f"cli view: {info['view']} {err[-1500:]}")
+
+
 def lbvh_phase(info, r, scene, camera, lights, kb, o_cam, d_cam, wide_img, wide_render):
     """The device LBVH on the bench scene: _build_triangle_bvh_device on
     the card's triangles (cold and warm seconds beside the native SAH
@@ -714,8 +1217,6 @@ def lbvh_phase(info, r, scene, camera, lights, kb, o_cam, d_cam, wide_img, wide_
     # s/sample of the two trees in turns (wide render, device-LBVH render,
     # three each), then one device-LBVH sample under the profiler: K1/K2's
     # device ms and the busy share, beside the `trace` phase's
-    from torch.profiler import ProfilerActivity, profile
-
     turns = {"sah": [], "device_lbvh": []}
     for _ in range(3):
         for name, rr in (("sah", r), ("device_lbvh", rl)):
@@ -726,21 +1227,9 @@ def lbvh_phase(info, r, scene, camera, lights, kb, o_cam, d_cam, wide_img, wide_
             turns[name].append(time.perf_counter() - t0)
     info["seconds_per_sample_in_turns"] = {k: median(v) for k, v in turns.items()}
     info["sample_seconds_in_turns"] = turns
-    zero_launch_counts()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rl.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    traced = launch_counts()
-    summary = trace_summary(prof, wall, ("K1", "K2"))
-    del prof
-    info["trace"] = dict(sample_wall_s=wall, launches=traced, **summary)
-    for k, mode in (("K1", "closest"), ("K2", "occlusion")):
-        if summary[k]["launches"] != traced[mode]:
-            raise RuntimeError(f"{k}: {summary[k]['launches']} kernels traced, "
-                               f"{traced[mode]} launches counted")
+    summary, traced, wall, discarded = profiled_step(rl, {"K1": "closest", "K2": "occlusion"})
+    info["trace"] = dict(sample_wall_s=wall, launches=traced, discarded_traces=discarded,
+                         **summary)
     others = sum(v for k, v in launches.items() if k not in ("closest", "occlusion"))
     if min(launches["closest"], launches["occlusion"]) <= 0 or others:
         raise RuntimeError(f"the device-LBVH render did not launch K1 and K2 alone: {launches}")
@@ -752,6 +1241,8 @@ def lbvh_phase(info, r, scene, camera, lights, kb, o_cam, d_cam, wide_img, wide_
 
 def main():
     _state["t0"] = time.perf_counter()
+    # no scene cache unless a phase sets one up: every start is cold
+    os.environ["TPURT_SCENE_CACHE_DIR"] = "0"
     timer = threading.Timer(DEADLINE_S, watchdog)
     timer.daemon = True
     timer.start()
@@ -840,7 +1331,8 @@ def main():
         path = write_sponza_like_scene(os.path.join(tmp.name, "sponza.gltf"), **SCENE_KW)
         write_s = time.perf_counter() - t0
         cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_samples=1024)
-        r = Renderer.from_gltf(path, config=cfg, camera=camera, lights=lights, device=dev)
+        r = Renderer.from_gltf(path, config=cfg, camera=camera, lights=lights, device=dev,
+                               cache=False)
         kb = r.bvh
         info.update(triangles=int(r.device_scene.tri_pos.shape[0]),
                     wide_nodes=int(kb.node_rows.shape[1]),
@@ -1328,25 +1820,11 @@ def main():
         kernel_rows[2]["launches"] = launches["rope_closest"]
 
         # one more rope sample under the profiler
-        from torch.profiler import ProfilerActivity, profile
-
-        zero_launch_counts()
-        done = rr.sample_count
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            rr.step()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        traced = launch_counts()
-        if rr.sample_count != done + 1:
-            raise RuntimeError(f"the traced step rendered {rr.sample_count - done} samples")
-        summary = trace_summary(prof, wall, ("K3",))
-        del prof
-        info.update(trace=dict(sample_wall_s=wall, launches=traced, **summary))
-        if summary["K3"]["launches"] == 0 or summary["K3"]["launches"] != traced["rope_closest"]:
-            raise RuntimeError(f"K3: {summary['K3']['launches']} kernels traced, "
-                               f"{traced['rope_closest']} launches counted")
+        summary, traced, wall, discarded = profiled_step(rr, {"K3": "rope_closest"})
+        info.update(trace=dict(sample_wall_s=wall, launches=traced, discarded_traces=discarded,
+                               **summary))
+        if summary["K3"]["launches"] == 0:
+            raise RuntimeError("the trace of a rope sample shows no K3 kernel")
         kernel_rows[2]["trace_per_sample"] = summary["K3"]
 
         # each captured wave against the plain walk, then K3 timed on it:
@@ -1717,6 +2195,27 @@ def main():
     with Phase("oracle") as info:
         oracle_phase(info, dev, tmp.name)
 
+    with Phase("cache") as info:
+        cache_phase(info, dev, path, cfg, camera, lights, tmp.name)
+        for row, mode in ((kernel_rows[0], "closest"), (kernel_rows[1], "occlusion")):
+            row["cache_warm_sample_launches"] = info["warm_launches"][mode]
+        kernel_rows[2]["cache_tri_warm_sample_launches"] = info["tri_warm_launches"]["rope_closest"]
+
+    with Phase("viewer") as info:
+        viewer_phase(info, dev, tmp.name)
+        for row, mode in ((kernel_rows[0], "closest"), (kernel_rows[1], "occlusion")):
+            row["viewer_launches"] = info["launches"][mode]
+
+    with Phase("shard") as info:
+        shard_phase(info, dev, r, wide_render["seconds_per_sample"])
+        for row, mode in ((kernel_rows[0], "closest"), (kernel_rows[1], "occlusion")):
+            row["shard_launches"] = {k: info[k]["launches"][mode] for k in
+                                     ("tile_4x1", "mixed_2x2", "sharded_renderer_1x2")}
+
+    torch.cuda.empty_cache()  # the child below measures the card's memory
+    with Phase("recovery") as info:
+        recovery_phase(info, path)
+
     torch.cuda.empty_cache()  # the entry points below run in processes of their own
     with Phase("cli") as info:
         cli_phase(info, path, scene.triangle_count, int(ds.tri_pos.shape[0]), tmp.name)
@@ -1737,7 +2236,10 @@ def main():
 
 if __name__ == "__main__":
     try:
-        code = main()
+        if sys.argv[1:2] == ["--recovery"]:
+            code = recovery_child(sys.argv[2]) or 0
+        else:
+            code = main()
     except Exception as e:  # any failing phase fails the run
         emit({"error": f"{type(e).__name__}: {e}", "phase": _state["phase"]})
         code = 1

@@ -1,9 +1,10 @@
 """The port's CLI (tpurt_torch/cli.py) with `--platform cpu`, the
 counterpart of tests/test_cli.py, held against tpurt's CLI: the parse
 helpers, `info` line for line, `render` of the box within RMSE 1e-5 of
-tpurt's accumulation, checkpoint and resume, camera paths; `view` and
-`--shard` refused with exit code 2; `--platform cuda` without a card
-refused with DeviceNotFound before anything renders."""
+tpurt's accumulation, checkpoint and resume, camera paths; `view`
+serving the renderer it builds; `render --shard` giving ShardedRenderer's
+image; `--platform cuda` without a card refused with DeviceNotFound
+before anything renders."""
 
 import os
 import subprocess
@@ -144,12 +145,59 @@ def test_trace_flag_writes_a_trace(box, tmp_path):
     assert [f for f in os.listdir(tmp_path / "trace") if f.endswith(".json")]
 
 
-@pytest.mark.parametrize("argv", [["view", "scene.gltf"],
-                                  ["render", "scene.gltf", "--shard", "2x4"],
-                                  ["--platform", "cpu", "render", "scene.gltf", "--shard", "1x1"]])
-def test_unported_commands_exit_2(argv, capsys):
-    assert cli.main(argv) == 2
-    assert "not ported yet (ROADMAP queue 1 items 6/7)" in capsys.readouterr().err
+def test_view_serves_the_renderer_it_builds(box, monkeypatch):
+    from tpurt_torch import viewer
+
+    seen = []
+
+    def serve(renderer, host="127.0.0.1", port=8000, block=True):
+        seen.append((renderer, host, port, block))
+
+    monkeypatch.setattr(viewer, "serve", serve)
+    rc = cli.main(["--platform", "cpu", "view", box, "--res", "40x30", "--spp", "16",
+                   "--port", "0", "--host", "0.0.0.0", "--camera", "1.5,1.2,2.0:-2.5:-0.45",
+                   "--light", "2,2,2:0.3:1,0.9,0.8:50"])
+    assert rc == 0 and len(seen) == 1
+    r, host, port, block = seen[0]
+    assert (host, port, block) == ("0.0.0.0", 0, True)
+    assert (r.config.width, r.config.height, r.config.max_samples) == (40, 30, 16)
+    assert r.device == torch.device("cpu") and r.device_scene.num_lights == 1
+    np.testing.assert_allclose(r.camera.position.numpy(), [1.5, 1.2, 2.0])
+
+
+def test_shard_renders_sharded_renderers_image(box, tmp_path):
+    from tpurt_torch.camera import Camera
+    from tpurt_torch.config import RenderConfig, SphereLight
+    from tpurt_torch.parallel import ShardedRenderer, make_mesh
+    from tpurt_torch.renderer import Renderer
+
+    acc = str(tmp_path / "acc.npz")
+    rc, out = _render(box, tmp_path, "--spp", "4", "--shard", "2x4", "--save-accum", acc)
+    assert rc == 0 and os.path.exists(out)
+    got = np.load(acc)
+    r = Renderer.from_gltf(box, config=RenderConfig(width=32, height=24, max_samples=4),
+                           camera=Camera.from_angles([1.5, 1.2, 2.0], -2.5, -0.45),
+                           lights=[SphereLight((2, 2, 2), 0.3, (1, 0.9, 0.8), 50)],
+                           device="cpu")
+    ShardedRenderer(r, make_mesh(n_tile=2, n_spp=4, devices=["cpu"] * 8)).render(4)
+    assert int(got["sample_count"]) == r.sample_count == 4
+    np.testing.assert_array_equal(got["accum"], r.image())
+
+
+def test_shard_1x1_is_the_unsharded_render(box, tmp_path):
+    a, b = str(tmp_path / "a.npz"), str(tmp_path / "b.npz")
+    assert _render(box, tmp_path, "--spp", "2", "--shard", "1x1", "--save-accum", a)[0] == 0
+    assert _render(box, tmp_path, "--spp", "2", "--save-accum", b)[0] == 0
+    np.testing.assert_array_equal(np.load(a)["accum"], np.load(b)["accum"])
+
+
+def test_shard_on_cuda_without_a_card_is_refused(box, tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = str(tmp_path / "never.png")
+    rc = cli.main(["render", box, *BOX_FLAGS, "--spp", "1", "--shard", "2x4", "-o", out])
+    assert rc != 0 and not os.path.exists(out)
+    assert "DeviceNotFound" in capsys.readouterr().err
 
 
 def test_cuda_without_a_card_is_refused(box, tmp_path, capsys):

@@ -3,8 +3,9 @@ occlusion; csrc/rope_traverse.cu, K3 rope closest hit and K4 rope
 occlusion; csrc/wide_octet.cu, K5 multi-walk; csrc/wide_stepcost.cu, K6
 step cost) against their plain PyTorch versions on the same inputs, and
 the box golden rendered through the wide kernels, through K5 and through
-K3; the brute-force oracle against the wave loop on the card, and the
-device LBVH build on the card against its CPU run. These need an NVIDIA
+K3; the brute-force oracle against the wave loop on the card, the
+device LBVH build on the card against its CPU run, the scene cache's
+warm start on the card, and a tile mesh against the banded render. These need an NVIDIA
 card: they
 are marked `cuda` and skip without one. They import nothing of JAX or
 tpurt, so they also run where neither is installed:
@@ -660,3 +661,38 @@ def test_device_lbvh_on_the_card_equals_the_cpu_build(dev):
         gmin = tris[card.tri_order].reshape(-1, g, 3, 3).min(axis=(1, 2))
         gmax = tris[card.tri_order].reshape(-1, g, 3, 3).max(axis=(1, 2))
         lbvh.validate_lbvh(card.bvh, gmin, gmax)
+
+
+def test_warm_start_on_the_card_is_bit_identical(dev, tmp_path, monkeypatch):
+    """A cache artifact saved on the card loads back to the same device
+    scene, tables (card tables included) and image, bit for bit."""
+    monkeypatch.setenv("TPURT_SCENE_CACHE_DIR", str(tmp_path / "cache"))
+    box = write_box_scene(str(tmp_path / "box.gltf"))
+    cold, warm = _box_renderer(box, dev), _box_renderer(box, dev)
+    assert "cache_save_s" in cold.timings and set(warm.timings) == {"cache_load_s"}
+    assert warm.bvh.node_rows.device.type == "cuda"
+    for a, b in ((cold.bvh.node_rows, warm.bvh.node_rows), (cold.bvh.tri_rows, warm.bvh.tri_rows),
+                 (cold.bvh.card.nodes, warm.bvh.card.nodes),
+                 (cold.bvh.card.leaves, warm.bvh.card.leaves),
+                 (cold.device_scene.tri_shade_row, warm.device_scene.tri_shade_row)):
+        assert torch.equal(a, b)
+    assert (cold.bvh.stack_bound, cold.bvh.depth_bound) == \
+        (warm.bvh.stack_bound, warm.bvh.depth_bound)
+    assert torch.equal(cold.render(2), warm.render(2))
+
+
+def test_tile_mesh_on_the_card_is_the_banded_render(dev, tmp_path):
+    """A 4 tile x 1 spp mesh over the one card four times: the
+    single-device render in 12-row bands, bit for bit, through K1/K2."""
+    from tpurt_torch.integrator.wavefront import render_sample_stats
+    from tpurt_torch.parallel import make_mesh, render_sample_stats_sharded
+
+    r = _box_renderer(write_box_scene(str(tmp_path / "box.gltf")), dev, w=64, h=48)
+    kw = dict(width=64, height=48, cfg=r.config, has_alpha=r.has_alpha, tex_flags=r.tex_flags)
+    before = dict(wide.LAUNCHES)
+    img, delivered, stats = render_sample_stats_sharded(
+        r.device_scene, r.bvh, r.camera, 1, make_mesh(4, 1, devices=[dev] * 4), **kw)
+    assert wide.LAUNCHES["closest"] > before["closest"] and delivered == 1
+    ref, ref_stats = render_sample_stats(r.device_scene, r.bvh, r.camera, 1, chunk_rows=12, **kw)
+    assert img.device == ref.device and torch.equal(img, ref)
+    assert stats == ref_stats

@@ -1,18 +1,19 @@
 """Whole-slice check: the port's Renderer on the CPU (camera, scene,
 wide tables, plain K1/K2 traversal, integrator, film) against the
 checked-in goldens that tpurt renders, within tests/test_goldens.py's
-bound of film.rmse < 1e-5."""
+bound of film.rmse < 1e-5. The scenes come from the port's writers, which
+write tpurt's bytes (tests/test_torch_samples.py)."""
 
 import os
 
 import numpy as np
 import pytest
 
-from tpurt.scene import procedural as jproc
 from tpurt_torch import film
 from tpurt_torch.camera import Camera
 from tpurt_torch.config import RenderConfig, SphereLight
 from tpurt_torch.renderer import Renderer
+from tpurt_torch.scene import procedural as proc
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 CFG = RenderConfig(width=64, height=48, max_samples=8)
@@ -50,7 +51,7 @@ def test_box_golden_in_row_bands(tmp_path):
 
 @pytest.mark.slow
 def test_helmet_golden(tmp_path):
-    path = jproc.write_helmet_like_scene(str(tmp_path / "helmet.gltf"))
+    path = proc.write_helmet_like_scene(str(tmp_path / "helmet.gltf"))
     _compare("helmet_64x48_8spp.npz", Renderer.from_gltf(path, config=CFG, device="cpu"), 8)
 
 
@@ -58,7 +59,7 @@ def test_helmet_golden(tmp_path):
 def test_lantern_golden(tmp_path):
     cfg = RenderConfig(width=64, height=48, max_samples=4)
     cam = Camera.from_angles([4.0, -2.0, 6.0], float(np.arctan2(-4.0, -6.0)), 0.1)
-    r = Renderer.from_gltf(jproc.write_lantern_like_scene(str(tmp_path / "l.gltf")),
+    r = Renderer.from_gltf(proc.write_lantern_like_scene(str(tmp_path / "l.gltf")),
                            config=cfg, camera=cam, device="cpu")
     _compare("lantern_64x48_4spp.npz", r, 4)
 

@@ -29,7 +29,10 @@ def test_every_module_imports_without_jax_tpurt_pil_ml_dtypes():
     mods = _all_modules()
     assert "tpurt_torch.kernels.wide" in mods and "tpurt_torch.integrator.wavefront" in mods
     assert {"tpurt_torch.kernels.experimental.rope", "tpurt_torch.kernels.cudalib",
-            "tpurt_torch.kernels.experimental", "tpurt_torch.integrator.oracle"} <= set(mods)
+            "tpurt_torch.kernels.experimental", "tpurt_torch.integrator.oracle",
+            "tpurt_torch.scene.cache", "tpurt_torch.scene.samples", "tpurt_torch.viewer",
+            "tpurt_torch.parallel", "tpurt_torch.parallel.shard", "tpurt_torch.runtime",
+            "tpurt_torch.runtime.device"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"mods = {mods!r}\n"
@@ -76,6 +79,7 @@ def test_no_module_source_mentions_forbidden_imports():
     "tpurt_torch.bvh.lbvh:build_lbvh",
     "tpurt_torch.bvh.lbvh:_build_triangle_bvh_device",
     "tpurt_torch.bvh.lbvh:build_triangle_bvh",
+    "tpurt_torch.scene.cache:load_artifacts",
 ])
 def test_entry_points_default_to_cuda(fn):
     import importlib
@@ -88,6 +92,7 @@ def test_entry_points_default_to_cuda(fn):
 
 
 def test_cuda_without_a_card_raises_instead_of_falling_back():
+    from tpurt_torch.parallel import make_mesh
     from tpurt_torch.runtime.device import DeviceNotFound, resolve_device
 
     assert resolve_device("cpu") == torch.device("cpu")
@@ -96,6 +101,9 @@ def test_cuda_without_a_card_raises_instead_of_falling_back():
     else:
         with pytest.raises(DeviceNotFound):
             resolve_device("cuda")
+        # a mesh over "every device" means every card, never the CPU
+        with pytest.raises(DeviceNotFound):
+            make_mesh()
 
 
 def test_kernel_wrapper_routes_cpu_tensors_to_the_plain_version():

@@ -456,13 +456,14 @@ def test_renderer_picks_the_rope_path(tmp_path, monkeypatch):
     cfg = RenderConfig(width=8, height=6, max_samples=1)
     r = _rope_renderer(path, cfg, group=4)
     assert isinstance(r.bvh, rope.KernelBVH) and r.bvh.group_size == 4
-    rw = Renderer.from_gltf(path, config=cfg, device="cpu")
+    # cache=False: these starts test which build runs, which a warm start skips
+    rw = Renderer.from_gltf(path, config=cfg, device="cpu", cache=False)
     assert isinstance(rw.bvh, wide.WideKernelBVH) and wide.wide_supported(rw.bvh.tribvh)
     assert Renderer.from_gltf(path, config=cfg, device="cpu", bvh=rw.bvh).bvh is rw.bvh
     with pytest.raises(TypeError):
         Renderer.from_gltf(path, config=cfg, device="cpu", bvh=rw.bvh.tribvh.bvh)
     monkeypatch.setattr(renderer_mod, "pick_group_size_wide", lambda n: 13)
-    r13 = Renderer.from_gltf(path, config=cfg, device="cpu")
+    r13 = Renderer.from_gltf(path, config=cfg, device="cpu", cache=False)
     assert not wide.wide_supported(r13.bvh.tribvh)
     assert isinstance(r13.bvh, rope.KernelBVH) and r13.bvh.group_size == 13
     assert np.isfinite(r13.render(1).numpy()).all()

@@ -132,7 +132,8 @@ def golden_rmse(device) -> float:
         cam = Camera.from_angles([1.5, 1.2, 2.0], float(np.arctan2(-1.5, -2.0)), -0.45)
         r = Renderer.from_gltf(
             path, config=RenderConfig(width=64, height=48, max_samples=8), camera=cam,
-            lights=[SphereLight((2.0, 2.0, 2.0), 0.3, (1.0, 0.9, 0.8), 50.0)], device=device)
+            lights=[SphereLight((2.0, 2.0, 2.0), 0.3, (1.0, 0.9, 0.8), 50.0)], device=device,
+            cache=False)
         return film.rmse(r.render(8), golden)
 
 
@@ -172,7 +173,8 @@ def run(device, width, height, scene_kw, samples, band_rows, spp_per_launch, dea
         path = write_sponza_like_scene(os.path.join(tmp, "bench_sponza.gltf"), **scene_kw)
         _log("procedural scene written", t0)
         r = Renderer.from_gltf(path, config=cfg, camera=Camera.from_angles(*CAMERA),
-                               lights=[SphereLight(*x) for x in LIGHTS], device=dev)
+                               lights=[SphereLight(*x) for x in LIGHTS], device=dev,
+                               cache=False)
     sync()
     _log(f"scene and tables ready ({r.device_scene.num_triangles} triangles); "
          "timing the warmup unit (first launches included)", t0)

@@ -55,6 +55,13 @@ class Camera(NamedTuple):
             right=torch.from_numpy(right),
         )
 
+    def moved(self, forward: float = 0.0, rightward: float = 0.0, upward: float = 0.0) -> "Camera":
+        """Fly-style translation along the camera basis (tpurt's order of
+        f32 operations)."""
+        pos = (self.position + forward * self.direction + rightward * self.right
+               + upward * self.up)
+        return self._replace(position=pos)
+
 
 def _frustum_rays(camera: Camera, pix: torch.Tensor, jx, jy, width: int,
                   height: int, tan_half_fov) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -8,10 +8,13 @@ Usage examples:
       --light=-8.3,-5.8,-2.3:0.1:0.8,0.6,0.6:500 --checkpoint run.npz
   python -m tpurt_torch.cli render scene.gltf --orbit 0,0,0:5:2:32 --out frames/
   python -m tpurt_torch.cli --platform cpu render scene.gltf --res 64x48 --spp 4
+  python -m tpurt_torch.cli --platform cpu render scene.gltf --res 64x48 --shard 2x4
+  python -m tpurt_torch.cli view scene.gltf --res 480x360 --port 8000
   python -m tpurt_torch.cli info scene.gltf
   python -m tpurt_torch.cli bench
 
-`view` and `render --shard` are not ported yet and exit with code 2.
+`render --shard TxS` renders over a T x S (tile x spp) mesh: T * S cards
+on cuda, the CPU T * S times with `--platform cpu`.
 """
 
 from __future__ import annotations
@@ -21,8 +24,6 @@ import contextlib
 import os
 import sys
 import time
-
-NOT_PORTED = "not ported yet (ROADMAP queue 1 items 6/7)"
 
 
 def _parse_res(s):
@@ -85,7 +86,9 @@ def build_parser():
     r.add_argument("--fly", default=None,
                    help="fly-through x,y,z;x,y,z;...:lx,ly,lz:frames_per_leg; renders a "
                         "frame sequence")
-    r.add_argument("--shard", default=None, help=f"multi-device mesh: {NOT_PORTED}")
+    r.add_argument("--shard", default=None,
+                   help="TILExSPP device mesh (e.g. 2x4): T*S cards on cuda, the CPU "
+                        "T*S times with --platform cpu")
     r.add_argument("--save-accum", default=None,
                    help="also dump the raw accumulation buffer (npz)")
     r.add_argument("--trace", default=None, metavar="DIR",
@@ -100,16 +103,18 @@ def build_parser():
     i = sub.add_parser("info", help="print scene statistics")
     i.add_argument("scenes", nargs="+")
 
-    v = sub.add_parser("view", help=f"interactive progressive viewer: {NOT_PORTED}")
-    v.add_argument("scenes", nargs="*")
+    v = sub.add_parser("view", help="interactive progressive viewer (browser)")
+    v.add_argument("scenes", nargs="+")
+    v.add_argument("--res", default="480x360")
+    v.add_argument("--spp", type=int, default=1024)
+    v.add_argument("--camera", type=_parse_camera, default=None)
+    v.add_argument("--light", type=_parse_light, action="append", default=None)
+    v.add_argument("--sponza-lights", action="store_true")
+    v.add_argument("--port", type=int, default=8000, help="0: any free port")
+    v.add_argument("--host", default="127.0.0.1")
 
     sub.add_parser("bench", help="run the benchmark harness (tpurt_torch.bench)")
     return p
-
-
-def _not_ported(what):
-    print(f"tpurt_torch: {what} is {NOT_PORTED}", file=sys.stderr)
-    return 2
 
 
 def cmd_render(args):
@@ -156,6 +161,15 @@ def cmd_render(args):
             return 2
         print("  scene validation: ok")
 
+    sharded = None
+    if args.shard:
+        from tpurt_torch.parallel import ShardedRenderer, make_mesh
+
+        t, s = (int(x) for x in args.shard.lower().split("x"))
+        devices = [renderer.device] * (t * s) if renderer.device.type == "cpu" else None
+        sharded = ShardedRenderer(renderer, make_mesh(n_tile=t, n_spp=s, devices=devices))
+        print(f"  sharding over mesh tile={t} x spp={s}")
+
     with contextlib.ExitStack() as stack:
         if args.trace:
             from tpurt_torch.utils.profiling import trace
@@ -166,7 +180,7 @@ def cmd_render(args):
             from tpurt_torch.utils.debug import with_checks
 
             stack.enter_context(with_checks())
-        rc = _render_body(args, renderer)
+        rc = _render_body(args, renderer, sharded)
     if args.debug_nans:
         from tpurt_torch.utils.debug import nan_report
 
@@ -174,11 +188,12 @@ def cmd_render(args):
     return rc
 
 
-def _render_body(args, renderer):
+def _render_body(args, renderer, sharded):
     import numpy as np
 
     from tpurt_torch.camera import fly_path, orbit_path
 
+    target = sharded if sharded is not None else renderer
     if args.orbit or args.fly:
         if args.orbit:
             center_s, radius_s, height_s, frames_s = args.orbit.split(":")
@@ -191,7 +206,7 @@ def _render_body(args, renderer):
         os.makedirs(args.out, exist_ok=True)
         for fi, cam in enumerate(cams):
             renderer.set_camera(cam)
-            renderer.render(args.spp)
+            target.render(args.spp)
             frame_path = os.path.join(args.out, f"frame_{fi:04d}.png")
             renderer.save_png(frame_path)
             print(f"  frame {fi + 1}/{len(cams)} -> {frame_path} "
@@ -206,9 +221,11 @@ def _render_body(args, renderer):
     if args.checkpoint and args.checkpoint_every:
         while renderer.sample_count < args.spp:
             nxt = min(renderer.sample_count + args.checkpoint_every, args.spp)
-            renderer.render(nxt)
+            target.render(nxt)
             renderer.save_checkpoint(args.checkpoint)
             print(f"  checkpoint @ {renderer.sample_count} spp -> {args.checkpoint}")
+    elif sharded is not None:
+        sharded.render(args.spp)
     else:
         renderer.render(args.spp, progress_every=args.progress_every)
     done = renderer.sample_count - start
@@ -244,25 +261,44 @@ def cmd_info(args):
     return 0
 
 
+def cmd_view(args):
+    from tpurt_torch import viewer
+    from tpurt_torch.camera import Camera
+    from tpurt_torch.config import DEFAULT_SPONZA_LIGHTS, RenderConfig
+    from tpurt_torch.renderer import Renderer
+
+    width, height = _parse_res(args.res)
+    cfg = RenderConfig(width=width, height=height, max_samples=args.spp)
+    lights = list(args.light or [])
+    if args.sponza_lights:
+        lights.extend(DEFAULT_SPONZA_LIGHTS)
+    camera = None
+    if args.camera is not None:
+        pos, phi, theta = args.camera
+        camera = Camera.from_angles(pos, phi, theta)
+    renderer = Renderer.from_gltf(args.scenes, config=cfg, lights=lights, camera=camera,
+                                  device=args.platform)
+    viewer.serve(renderer, host=args.host, port=args.port)
+    return 0
+
+
 def main(argv=None):
     from tpurt_torch.runtime.device import DeviceNotFound, resolve_device
 
     args = build_parser().parse_args(argv)
-    if args.command == "view":
-        return _not_ported("view")
     if args.command == "info":
         return cmd_info(args)
     if args.command == "bench":
         from tpurt_torch import bench
 
         return bench.main(["--device", args.platform])
-    if args.shard:
-        return _not_ported("render --shard")
     try:
         resolve_device(args.platform)
     except DeviceNotFound as e:
         print(f"tpurt_torch: DeviceNotFound: {e}", file=sys.stderr)
         return 1
+    if args.command == "view":
+        return cmd_view(args)
     return cmd_render(args)
 
 

@@ -1,5 +1,21 @@
-"""Runtime: device selection."""
+"""Runtime: device discovery and selection, and frame pacing."""
 
-from tpurt_torch.runtime.device import DeviceNotFound, resolve_device
+from tpurt_torch.runtime.device import (
+    FRAMES_IN_FLIGHT,
+    DeviceInfo,
+    DeviceNotFound,
+    FramePacer,
+    list_devices,
+    resolve_device,
+    select_device,
+)
 
-__all__ = ["DeviceNotFound", "resolve_device"]
+__all__ = [
+    "FRAMES_IN_FLIGHT",
+    "DeviceInfo",
+    "DeviceNotFound",
+    "FramePacer",
+    "list_devices",
+    "resolve_device",
+    "select_device",
+]

@@ -1,7 +1,8 @@
-"""Procedural glTF scene generation (the port's copy of the box and
-Sponza-like writers of tpurt/scene/procedural.py; textures are encoded
-by tpurt_torch/utils/png.py instead of Pillow, so the PNG bytes differ
-from tpurt's files while the decoded texels are the same).
+"""Procedural glTF scene generation (the port's copy of the writers of
+tpurt/scene/procedural.py). Textures are encoded by
+tpurt_torch/utils/png.py instead of Pillow; it writes Pillow's bytes, so
+every writer here writes the bytes tpurt's writer writes for the same
+arguments.
 
 The target sample scenes (Box, Damaged Helmet, Lantern, Sponza —
 reference README.md:26, BASELINE.json configs) are not redistributable,
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import base64
 import json
+import struct
 from typing import Optional
 
 import numpy as np
@@ -248,6 +250,24 @@ class GLTFBuilder:
             json.dump(doc, f)
         return path
 
+    def write_glb(self, path: str):
+        """Write the binary GLB container (JSON chunk + BIN chunk)."""
+        bin_chunk = bytes(self.blob)
+        while len(bin_chunk) % 4:
+            bin_chunk += b"\x00"
+        doc = self._doc({"byteLength": len(bin_chunk)})  # no uri: GLB BIN chunk
+        json_chunk = json.dumps(doc).encode()
+        while len(json_chunk) % 4:
+            json_chunk += b" "
+        total = 12 + 8 + len(json_chunk) + 8 + len(bin_chunk)
+        with open(path, "wb") as f:
+            f.write(struct.pack("<III", 0x46546C67, 2, total))  # 'glTF', v2
+            f.write(struct.pack("<II", len(json_chunk), 0x4E4F534A))  # JSON
+            f.write(json_chunk)
+            f.write(struct.pack("<II", len(bin_chunk), 0x004E4942))  # BIN
+            f.write(bin_chunk)
+        return path
+
 
 def write_box_scene(path: str, base_color=(0.8, 0.2, 0.2, 1.0)) -> str:
     """The Box analogue: one cube, one material (BASELINE.json config 1)."""
@@ -256,6 +276,80 @@ def write_box_scene(path: str, base_color=(0.8, 0.2, 0.2, 1.0)) -> str:
     mat = b.add_material(base_color=base_color, roughness=1.0)
     mesh = b.add_mesh(p, n, uv, idx, material=mat)
     b.add_node(mesh=mesh)
+    return b.write(path)
+
+
+def write_textured_quad_scene(path: str, tex_size=16, checker=4,
+                              sampler: Optional[dict] = None) -> str:
+    """A single textured quad (texture sampling / wrap-mode tests)."""
+    b = GLTFBuilder()
+    p, n, uv, idx = _quad_mesh()
+    img = np.zeros((tex_size, tex_size, 4), np.uint8)
+    yy, xx = np.mgrid[0:tex_size, 0:tex_size]
+    mask = ((xx // checker) + (yy // checker)) % 2 == 0
+    img[mask] = [255, 255, 255, 255]
+    img[~mask] = [0, 0, 0, 255]
+    tex = b.add_texture(img, sampler=sampler)
+    mat = b.add_material(base_color_texture=tex)
+    mesh = b.add_mesh(p, n, uv, idx, material=mat)
+    b.add_node(mesh=mesh)
+    return b.write(path)
+
+
+def write_helmet_like_scene(path: str) -> str:
+    """Damaged-Helmet analogue: normal-mapped, metallic-roughness-textured
+    sphere with tangents (BASELINE.json config 2)."""
+    b = GLTFBuilder()
+    p, n, uv, idx = _uv_sphere(24, 18, 0.7)
+    # tangents: d(position)/d(u) direction
+    tangents = np.zeros((p.shape[0], 4), np.float32)
+    phi = 2 * np.pi * uv[:, 0]
+    tangents[:, 0] = -np.sin(phi + np.pi / 2)
+    tangents[:, 2] = np.cos(phi + np.pi / 2)
+    tangents[:, 3] = 1.0
+    rng = np.random.RandomState(7)
+    albedo = (rng.rand(32, 32, 4) * 127 + 64).astype(np.uint8)
+    albedo[..., 3] = 255
+    mr = np.zeros((16, 16, 4), np.uint8)
+    mr[..., 1] = np.linspace(40, 220, 16, dtype=np.uint8)[None, :]
+    mr[..., 3] = 255
+    nrm = np.full((16, 16, 4), 128, np.uint8)
+    nrm[..., 2] = 255
+    nrm[..., 3] = 255
+    t_alb = b.add_texture(albedo)
+    t_mr = b.add_texture(mr)
+    t_n = b.add_texture(nrm)
+    mat = b.add_material(base_color=(1, 1, 1, 1), metallic=0.7, roughness=0.4,
+                         base_color_texture=t_alb, mr_texture=t_mr, normal_texture=t_n)
+    mesh = b.add_mesh(p, n, uv, idx, tangents=tangents, material=mat)
+    b.add_node(mesh=mesh)
+    cam = b.add_camera()
+    # loader camera position maps (tx, ty, tz) -> (tx, -ty, -tz)
+    # (ModelLoader.cpp:568 + Raytracer.cpp:134) and looks along -z, so place
+    # the node at z=-2.5 to end up at +2.5 facing the sphere at the origin
+    b.add_node(camera=cam, translation=[0.0, 0.0, -2.5])
+    return b.write(path)
+
+
+def write_lantern_like_scene(path: str) -> str:
+    """Lantern analogue: multi-node scene graph with nested transforms and an
+    emissive material (BASELINE.json config 3)."""
+    b = GLTFBuilder()
+    p, n, uv, idx = _box_mesh()
+    body = b.add_material(base_color=(0.3, 0.3, 0.35, 1.0), roughness=0.6)
+    glow = b.add_material(base_color=(1.0, 0.9, 0.7, 1.0), emissive=(1.0, 0.8, 0.5))
+    mesh_body = b.add_mesh(p, n, uv, idx, material=body)
+    mesh_glow = b.add_mesh(p, n, uv, idx, material=glow)
+    # pole with a hanging glowing box, plus ground
+    glow_node = b.add_node(mesh=mesh_glow, translation=[0, 1.5, 0],
+                           scale=[0.3, 0.3, 0.3], root=False)
+    pole = b.add_node(mesh=mesh_body, translation=[0, 0.5, 0], scale=[0.1, 2.0, 0.1],
+                      children=[glow_node])
+    # ground: a thin unrotated box (a rotated quad would be garbled by the
+    # reference's shifted-quaternion quirk that this loader replicates)
+    ground_mat = b.add_material(base_color=(0.5, 0.5, 0.5, 1.0))
+    ground = b.add_mesh(p, n, uv, idx.astype(np.uint8), material=ground_mat)
+    b.add_node(mesh=ground, translation=[0, 3.3, 0], scale=[20, 0.1, 20])
     return b.write(path)
 
 

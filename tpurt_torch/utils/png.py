@@ -5,7 +5,12 @@ without Pillow. Decoding covers what glTF assets and Pillow's encoder
 produce for 8-bit images: grey, grey+alpha, RGB, RGBA and palette
 colour types, non-interlaced, with all five row filters. Every image
 decodes to (H, W, 4) uint8 RGBA, as Pillow's `convert("RGBA")` gives.
-Encoding writes RGB or RGBA with filter 0 on every row.
+
+Encoding writes RGB or RGBA the way Pillow's PNG writer does with its
+defaults, so the bytes are Pillow's: per row the first filter of None,
+Up, Sub and Paeth with the least sum of |byte| (bytes read as signed),
+zlib level 6 with memLevel 9 and the Z_FILTERED strategy, and IDAT
+chunks of max(65536, 4 * width) bytes.
 """
 
 from __future__ import annotations
@@ -24,19 +29,45 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
 
 
+def _filtered_rows(img: np.ndarray) -> bytes:
+    """Each row behind its filter byte, the filter chosen as Pillow's
+    encoder chooses it (libImaging/ZipEncode.c)."""
+    h, w, c = img.shape
+    cur = img.reshape(h, w * c)
+    up = np.zeros_like(cur)
+    up[1:] = cur[:-1]
+    left = np.zeros_like(cur)
+    left[:, c:] = cur[:, :-c]
+    upleft = np.zeros_like(cur)
+    upleft[:, c:] = up[:, :-c]
+    a, b, cc = (x.astype(np.int16) for x in (left, up, upleft))
+    p = a + b - cc
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc)).astype(np.uint8)
+    # candidates in the order Pillow tries them: None, Up, Sub, Paeth
+    cands = np.stack([cur, cur - up, cur - left, cur - pred])
+    signed = cands.astype(np.int16)
+    cost = np.where(signed < 128, signed, 256 - signed).sum(axis=2)
+    pick = np.argmin(cost, axis=0)  # the first of equal sums, as Pillow keeps it
+    rows = np.empty((h, 1 + w * c), np.uint8)
+    rows[:, 0] = np.array([0, 2, 1, 4], np.uint8)[pick]
+    rows[:, 1:] = cands[pick, np.arange(h)]
+    return rows.tobytes()
+
+
 def encode_png(image: np.ndarray) -> bytes:
-    """(H, W, 3|4) uint8 -> PNG bytes."""
+    """(H, W, 3|4) uint8 -> PNG bytes, as Pillow writes them."""
     img = np.ascontiguousarray(image, dtype=np.uint8)
     if img.ndim != 3 or img.shape[2] not in (3, 4):
         raise ValueError(f"expected (H, W, 3|4) uint8, got {img.shape}")
     h, w, c = img.shape
     color_type = 2 if c == 3 else 6
-    raw = np.zeros((h, 1 + w * c), np.uint8)
-    raw[:, 1:] = img.reshape(h, w * c)
     header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
-    return (_SIGNATURE + _chunk(b"IHDR", header)
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-            + _chunk(b"IEND", b""))
+    z = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    data = z.compress(_filtered_rows(img)) + z.flush()
+    step = max(65536, 4 * w)
+    idat = b"".join(_chunk(b"IDAT", data[i:i + step]) for i in range(0, len(data), step))
+    return _SIGNATURE + _chunk(b"IHDR", header) + idat + _chunk(b"IEND", b"")
 
 
 def write_png(path: str, image: np.ndarray) -> None:
