@@ -69,8 +69,10 @@ def test_step_recovers_from_a_failed_launch(box, monkeypatch, capsys, exc):
     # two failures: the band halves twice from the whole frame, 24 -> 12 ->
     # 8 (the floor), and the later launches keep it
     assert r._chunk_rows_now == 8 and bands == [0, 12, 8, 8, 8, 8]
-    # per-ray results do not depend on the band: the same image, bit for bit
-    assert torch.equal(r.accum, ref.accum)
+    # recovery does not corrupt the accumulation: the same sample streams
+    # (tpurt's bound; on the CPU a band may round a pixel one ulp apart
+    # from a whole frame, ROADMAP queue 3)
+    np.testing.assert_allclose(r.accum.numpy(), ref.accum.numpy(), atol=2e-6)
     assert "retrying from sample 0 with chunk_rows=12" in capsys.readouterr().err
 
 
@@ -93,7 +95,7 @@ def test_recovery_rolls_back_to_the_newest_complete_state(box, monkeypatch):
     monkeypatch.setattr(renderer_mod.film, "accumulate", flaky)
     r.render(4)
     assert fails["left"] == 0 and r.sample_count == 4 and r._chunk_rows_now == 12
-    assert torch.equal(r.accum, ref.accum)
+    np.testing.assert_allclose(r.accum.numpy(), ref.accum.numpy(), atol=2e-6)
 
 
 @pytest.mark.parametrize("msg", ["INVALID_ARGUMENT: dtype mismatch",

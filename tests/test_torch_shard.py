@@ -4,6 +4,8 @@ virtual CPU devices: tests/test_sharding.py's seven cases with tpurt's
 bounds or tighter, and one launch held against tpurt's
 render_sample_sharded on the same scene and mesh."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -175,14 +177,16 @@ def test_sharded_alpha_tested_scene_matches(tmp_path):
 def test_sharded_spp_per_launch(box):
     """cfg.spp_per_launch batches samples inside each shard: one launch of
     an 8-tile mesh delivers spp_per_launch samples, the sequential
-    stream's first launch, bit for bit."""
+    stream's first launch (tpurt's median bound), and bit for bit the
+    same launch rendered in the tiles' 3-row bands."""
     cfg = RenderConfig(width=32, height=24, max_samples=8, spp_per_launch=2)
     radiance, delivered = _launch(box, make_mesh(n_tile=8, n_spp=1, devices=DEVS), cfg)
     assert delivered == 2
     img = _fresh(box, cfg).render(2)  # one launch of 2 samples
     diff = np.abs(radiance.numpy()[..., :3] - img.numpy()[..., :3])
     assert np.median(diff) < 1e-5
-    assert torch.equal(radiance, img)
+    banded = _fresh(box, dataclasses.replace(cfg, chunk_rows=3)).render(2)
+    assert torch.equal(radiance, banded)
 
 
 def test_launch_matches_tpurts_sharded_launch(box, tmp_path):
