@@ -399,8 +399,9 @@ def trace_summary(prof, wall_s, kernels):
 
 
 def annotation_cost_us(n=20000):
-    """Host microseconds of one empty `annotate` range with no profiler
-    running (the record_function and NVTX calls), median of 5 runs of n."""
+    """Host microseconds of one empty `annotate` block with no profiler
+    running (the profiler-flag check; no range opens), median of 5 runs
+    of n."""
     from tpurt_torch.utils.profiling import annotate
 
     runs = []

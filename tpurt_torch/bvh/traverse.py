@@ -15,9 +15,10 @@ test oracle.
 On the wide path, above 2048 rays the rays are sorted by an (octant,
 origin Morton, direction Morton) key before the traversal and the
 results are put back in the caller's order, as tpurt does; tpurt's
-variadic `lax.sort` becomes a stable `torch.sort` plus gathers. The sort
-changes which rays share a warp, never a ray's result. The rope path is
-not sorted, as in tpurt.
+variadic `lax.sort` becomes a stable `torch.sort` plus gathers (the
+`ray_sort` range: key, sort, gathers; `ray_unsort`: the scatters back).
+The sort changes which rays share a warp, never a ray's result. The rope
+path is not sorted, as in tpurt.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from tpurt_torch.kernels.intersect import (
     intersect_spheres,
     ray_triangle,
 )
+from tpurt_torch.utils.profiling import annotate
 
 SORT_MIN_RAYS = 2048
 
@@ -180,13 +182,15 @@ def closest_hit(kbvh, lights, o, d, t_min, t_max,
     cell_masks = return_pending and policy.cell_masks_closest
     kw = dict(cell_masks=cell_masks, octet=policy.octet_closest)
     if sort_rays and n > SORT_MIN_RAYS:
-        key = _octant_morton_key(kbvh, o, d, active)
-        order, (op, dp, tp, ap) = _sort_rays(key, (o, d, t_min, active))
+        with annotate("ray_sort"):
+            key = _octant_morton_key(kbvh, o, d, active)
+            order, (op, dp, tp, ap) = _sort_rays(key, (o, d, t_min, active))
         out = wide.traverse_packets(kbvh, op, dp, tp, t_max, ap, **kw)
-        t, prim, u, v = _unsort(order, out[:4])
-        pending = out[4] if cell_masks else None
-        if pending is not None:
-            (pending,) = _unsort(order, (pending,))
+        with annotate("ray_unsort"):
+            t, prim, u, v = _unsort(order, out[:4])
+            pending = out[4] if cell_masks else None
+            if pending is not None:
+                (pending,) = _unsort(order, (pending,))
     else:
         out = wide.traverse_packets(kbvh, o, d, t_min, t_max, active, **kw)
         t, prim, u, v = out[:4]
@@ -216,11 +220,13 @@ def occlusion_hit(kbvh, o, d, t_min, t_limit, active, scene_has_alpha: bool,
     if active is None:
         active = torch.ones(n, dtype=torch.bool, device=o.device)
     if sort_rays and n > SORT_MIN_RAYS:
-        key = _octant_morton_key(kbvh, o, d, active, ray_class)
-        order, (op, dp, tp, tl, ap) = _sort_rays(key, (o, d, t_min, t_limit, active))
+        with annotate("ray_sort"):
+            key = _octant_morton_key(kbvh, o, d, active, ray_class)
+            order, (op, dp, tp, tl, ap) = _sort_rays(key, (o, d, t_min, t_limit, active))
         out = wide.occlusion_packets(kbvh, op, dp, tp, tl, ap, scene_has_alpha,
                                      octet=policy.octet_occlusion)
-        blocked, t, prim, u, v = _unsort(order, out)
+        with annotate("ray_unsort"):
+            blocked, t, prim, u, v = _unsort(order, out)
     else:
         blocked, t, prim, u, v = wide.occlusion_packets(
             kbvh, o, d, t_min, t_limit, active, scene_has_alpha,

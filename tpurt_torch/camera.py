@@ -14,6 +14,7 @@ import torch
 
 from tpurt_torch import rng
 from tpurt_torch.kernels.bsdf import _cross, _norm, recip32
+from tpurt_torch.utils.profiling import host_sync
 
 
 class Camera(NamedTuple):
@@ -28,7 +29,16 @@ class Camera(NamedTuple):
         return _cross(self.direction, self.right)
 
     def to(self, device) -> "Camera":
-        return Camera(*(x.to(device) for x in self))
+        """The camera on `device`: each vector lying elsewhere is copied
+        (from the host, a copy that waits for the stream on a card)."""
+        device = torch.device(device)
+        out = []
+        for x in self:
+            if x.device != device:
+                with host_sync("scalar_h2d"):
+                    x = x.to(device)
+            out.append(x)
+        return Camera(*out)
 
     @staticmethod
     def default() -> "Camera":

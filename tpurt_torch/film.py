@@ -12,6 +12,7 @@ import torch
 
 from tpurt_torch.camera import Camera
 from tpurt_torch.utils import png
+from tpurt_torch.utils.profiling import host_sync
 
 
 def accumulate(prev: torch.Tensor, new: torch.Tensor, sample_count) -> torch.Tensor:
@@ -25,8 +26,9 @@ def accumulate(prev: torch.Tensor, new: torch.Tensor, sample_count) -> torch.Ten
     else:
         blended = new.clone()
     nan_mask = torch.isnan(blended).any(dim=-1, keepdim=True)
-    red = torch.tensor([1.0, 0.0, 0.0, 1.0], dtype=blended.dtype,
-                       device=blended.device)
+    with host_sync("scalar_h2d"):
+        red = torch.tensor([1.0, 0.0, 0.0, 1.0], dtype=blended.dtype,
+                           device=blended.device)
     return torch.where(nan_mask, red, blended)
 
 
@@ -39,7 +41,12 @@ def tonemap(accum: torch.Tensor, exposure) -> torch.Tensor:
 
 def to_srgb8(mapped) -> np.ndarray:
     """Tone-mapped float image -> uint8."""
-    arr = mapped.detach().cpu().numpy() if isinstance(mapped, torch.Tensor) else np.asarray(mapped)
+    if isinstance(mapped, torch.Tensor):
+        with host_sync("frame_to_host"):
+            mapped = mapped.detach().cpu()
+        arr = mapped.numpy()
+    else:
+        arr = np.asarray(mapped)
     return (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
 
 

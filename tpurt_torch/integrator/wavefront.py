@@ -10,13 +10,15 @@ order, so per-ray results match tpurt's.
 
 Control flow. tpurt's `lax.cond` / `lax.while_loop` with data-dependent
 predicates are Python control flow here (each `.any()` is one host
-sync). tpurt's fixed-capacity compaction (`retrace_frac`, `shade_frac`,
-`compact_ladder`) existed to keep XLA shapes static; the port compacts
-with dynamic sizes instead: a wave traces only the rays that are live,
-shades only the rays that hit a triangle, and an alpha re-trace or
-texture recheck runs only on the rays that need it. Every step is
-per-lane, and a lane that is left out is one whose result tpurt masks
-away, so the rendered values are unchanged.
+sync, as is each `nonzero`; every such wait opens a `sync.<site>`
+range, utils/profiling.host_sync). tpurt's fixed-capacity compaction
+(`retrace_frac`, `shade_frac`, `compact_ladder`) existed to keep XLA
+shapes static; the port compacts with dynamic sizes instead: a wave
+traces only the rays that are live, shades only the rays that hit a
+triangle, and an alpha re-trace or texture recheck runs only on the
+rays that need it. Every step is per-lane, and a lane that is left out
+is one whose result tpurt masks away, so the rendered values are
+unchanged.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from tpurt_torch.kernels.texture import sample_texture_alpha_quad, sample_textur
 from tpurt_torch.kernels.wide import WideKernelBVH
 from tpurt_torch.scene.device import DeviceScene
 from tpurt_torch.scene.types import NO_TEXTURE
-from tpurt_torch.utils.profiling import annotate
+from tpurt_torch.utils.profiling import annotate, host_sync
 
 _ENV_PDF = 1.0 / (2.0 * B.PI)
 # camera hit + up to 7 bounces (the reference's recursion cap);
@@ -61,8 +63,20 @@ class RayStats(NamedTuple):
     physical: float
 
 
-def _nz(mask: torch.Tensor) -> torch.Tensor:
-    return torch.nonzero(mask, as_tuple=True)[0]
+def _nz(mask: torch.Tensor, site: str) -> torch.Tensor:
+    """Indices of the true lanes; the host waits for their count."""
+    with host_sync(site):
+        return torch.nonzero(mask, as_tuple=True)[0]
+
+
+def _any_on_host(x: torch.Tensor, site: str) -> bool:
+    with host_sync(site):
+        return bool(x.any())
+
+
+def _count_on_host(x: torch.Tensor, site: str) -> int:
+    with host_sync(site):
+        return int(x.sum())
 
 
 def _scatter(full: torch.Tensor, idx: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
@@ -94,7 +108,7 @@ def _alpha_eval(scene: DeviceScene, u, v, prim, tested) -> torch.Tensor:
     obit = (row[:, 10].to(torch.int32) >> cell) & 1
     undecided = tested & (tbit == 0) & (obit == 0)
     by_tap = torch.zeros_like(tested)
-    ui = _nz(undecided)
+    ui = _nz(undecided, "alpha_lanes")
     if ui.numel():
         r, uu, vv = row[ui], u[ui], v[ui]
         w0 = 1.0 - uu - vv
@@ -118,7 +132,7 @@ def _alpha_rejected(scene: DeviceScene, h: Hit, mask, pending=None) -> torch.Ten
     else:
         tested = mask & pending
     out = torch.zeros_like(tested)
-    idx = _nz(tested)
+    idx = _nz(tested, "alpha_lanes")
     if idx.numel():
         out[idx] = _alpha_eval(scene, h.u[idx], h.v[idx], prim[idx], tested[idx])
     return out
@@ -145,10 +159,10 @@ def _trace(scene, bvh, o, d, t_min0, active, include_spheres, cfg: RenderConfig,
         rej = _alpha_rejected(scene, hit, active, pending)
         t_min = t_min0
         for _ in range(cfg.max_alpha_skips):
-            if not bool(rej.any()):
+            if not _any_on_host(rej, "alpha_any"):
                 break
             t_min = torch.where(rej, _retrace_tmin(hit.t), t_min)
-            idx = _nz(rej)
+            idx = _nz(rej, "alpha_lanes")
             nh, npend = closest_hit(bvh, scene.lights, o[idx], d[idx],
                                     t_min[idx], cfg.t_max, include_spheres=include_spheres,
                                     active=torch.ones_like(idx, dtype=torch.bool),
@@ -199,10 +213,10 @@ def _trace_shadow(scene, bvh, o, d, active, throughput, cfg: RenderConfig,
                 blocked = blocked | (unc & ~rej)
                 t_min = t_min0
                 for _ in range(cfg.max_alpha_skips):
-                    if not bool(rej.any()):
+                    if not _any_on_host(rej, "alpha_any"):
                         break
                     t_min = torch.where(rej, _retrace_tmin(hit.t), t_min)
-                    idx = _nz(rej)
+                    idx = _nz(rej, "alpha_lanes")
                     b_c, h_c = occlusion_hit(bvh, o[idx], d[idx], t_min[idx], t_limit[idx],
                                              torch.ones_like(idx, dtype=torch.bool),
                                              has_alpha, policy=cfg.kernel)
@@ -224,7 +238,8 @@ def _trace_shadow(scene, bvh, o, d, active, throughput, cfg: RenderConfig,
         blocked = active & (hit.kind == KIND_TRIANGLE) & (hit.t <= t_limit)
 
     with annotate("shadow_payload"):
-        sky = torch.tensor(cfg.sky_color, dtype=torch.float32, device=dev)
+        with host_sync("scalar_h2d"):
+            sky = torch.tensor(cfg.sky_color, dtype=torch.float32, device=dev)
         if scene.lights.shape[0] > 0:
             light = scene.lights[torch.clamp(s_id, 0, scene.lights.shape[0] - 1).long()]
             light_rgb = light[:, 4:7] * light[:, 7:8] * throughput[:, None]
@@ -458,7 +473,8 @@ def trace_paths(scene: DeviceScene, bvh, o, d, state, *, cfg: RenderConfig,
     depth = torch.zeros(n, dtype=torch.int32, device=dev)
     active = torch.ones(n, dtype=torch.bool, device=dev)
     mis_coeff = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    sky = torch.tensor(cfg.sky_color, dtype=torch.float32, device=dev)
+    with host_sync("scalar_h2d"):
+        sky = torch.tensor(cfg.sky_color, dtype=torch.float32, device=dev)
     fold = bool(cfg.fold_bsdf_mis)
     nl = scene.lights.shape[0]
     logical = physical = 0
@@ -499,7 +515,7 @@ def trace_paths(scene: DeviceScene, bvh, o, d, state, *, cfg: RenderConfig,
         with annotate(f"wave{wave_idx}"):
             pending = (mis_coeff != 0.0).any(dim=-1)
             trace_act = active | pending
-            ti = _nz(trace_act)
+            ti = _nz(trace_act, "live_lanes")
             if ti.numel() == 0:
                 break
             # trace the live lanes only; the rest keep tpurt's inactive-ray
@@ -513,8 +529,8 @@ def trace_paths(scene: DeviceScene, bvh, o, d, state, *, cfg: RenderConfig,
             hit = _hit_scatter(_miss_hit(n, cfg.t_max, dev), ti, hit_c)
 
             is_tri = active & (hit.kind == KIND_TRIANGLE)
-            n_tri = int(is_tri.sum())
-            logical += int(active.sum()) + 2 * n_tri
+            n_tri = _count_on_host(is_tri, "ray_count")
+            logical += _count_on_host(active, "ray_count") + 2 * n_tri
             physical += ti.numel() + (1 if fold else 2) * n_tri
             is_miss = active & (hit.kind == KIND_MISS)
             zero3 = torch.zeros_like(radiance)
@@ -525,7 +541,7 @@ def trace_paths(scene: DeviceScene, bvh, o, d, state, *, cfg: RenderConfig,
                 radiance = radiance + torch.where(is_miss[:, None],
                                                   sky[None, :] * throughput[:, None], zero3)
 
-            si = _nz(is_tri)
+            si = _nz(is_tri, "shade_lanes")
             hit_s = Hit(*(x[si] for x in hit))
             outs = shade_nee(o[si], d[si], state[si], throughput[si], hit_s)
             (st_c, mi_c, ll_c, bd_c, tn_c, kl_c, no_c, al_c, fw_c) = outs
@@ -613,12 +629,13 @@ def render_rows_stats(scene: DeviceScene, bvh, camera: Camera, sample_index: int
     ((rows, width, 4) radiance, RayStats)."""
     spp = cfg.spp_per_launch
     dev = scene.tri_pos.device
-    o, d, state = camera_rays_for_rows(camera, row_start, rows, width, height,
-                                       cfg.tan_half_fov, sample_index, cfg.seed,
-                                       spp=spp, device=dev)
     ts = tile_shape(rows, width)
-    if ts is not None:
-        o, d, state = (tile_pack(x, spp, rows, width, *ts) for x in (o, d, state))
+    with annotate("camera_rays"):
+        o, d, state = camera_rays_for_rows(camera, row_start, rows, width, height,
+                                           cfg.tan_half_fov, sample_index, cfg.seed,
+                                           spp=spp, device=dev)
+        if ts is not None:
+            o, d, state = (tile_pack(x, spp, rows, width, *ts) for x in (o, d, state))
     radiance, stats = trace_paths(scene, bvh, o, d, state, cfg=cfg,
                                   has_alpha=has_alpha, return_stats=True,
                                   tex_flags=tex_flags)

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpurt_torch.utils.profiling import host_sync
+
 PI = 3.14159265358979323846
 _FLT_MIN = 1.1754943508222875e-38  # smallest normal float32
 # 1 / (2 sqrt(pi)) evaluated in float32, as tpurt's `jnp.sqrt(PI)` does
@@ -66,11 +68,14 @@ def _ftz(x):
 
 
 def _where(c, a, b):
-    """torch.where that accepts Python floats on either side."""
+    """torch.where that accepts Python floats on either side; each float
+    is a copy from the host, which waits for the stream on a card."""
     if not isinstance(a, torch.Tensor):
-        a = torch.tensor(a, dtype=torch.float32, device=c.device)
+        with host_sync("scalar_h2d"):
+            a = torch.tensor(a, dtype=torch.float32, device=c.device)
     if not isinstance(b, torch.Tensor):
-        b = torch.tensor(b, dtype=torch.float32, device=c.device)
+        with host_sync("scalar_h2d"):
+            b = torch.tensor(b, dtype=torch.float32, device=c.device)
     return torch.where(c, a, b)
 
 

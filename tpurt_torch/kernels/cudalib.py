@@ -27,6 +27,8 @@ from typing import Dict
 
 import torch
 
+from tpurt_torch.utils.profiling import host_sync
+
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -135,7 +137,8 @@ def check_kernel_errors(device) -> None:
     err = _ERR_WORDS.get(_card(device))
     if err is None:
         return
-    bits = int(err.item())
+    with host_sync("error_word"):
+        bits = int(err.item())
     if bits:
         err.zero_()
         faults = [text for bit, text in _ERR_TEXT.items() if bits & bit]

@@ -57,6 +57,7 @@ import torch
 from tpurt_torch.bvh.lbvh import TriBVH
 from tpurt_torch.kernels import cudalib
 from tpurt_torch.kernels.intersect import mask_cell, ray_triangle_rows
+from tpurt_torch.utils.profiling import host_sync
 
 ARITY = 16
 _LANE = 128
@@ -121,10 +122,16 @@ class WideKernelBVH:
         return self.tri_rows.shape[1] == self.group_size * 12
 
     def root_bounds(self):
+        """The root box (lo, hi) on the tables' device: two copies from the
+        host, each of which waits for the stream there."""
         b = self.tribvh.bvh
         dev = self.node_rows.device
-        return (torch.from_numpy(np.asarray(b.node_min[0], np.float32)).to(dev),
-                torch.from_numpy(np.asarray(b.node_max[0], np.float32)).to(dev))
+        out = []
+        for x in (b.node_min[0], b.node_max[0]):
+            x = torch.from_numpy(np.asarray(x, np.float32))
+            with host_sync("root_bounds"):
+                out.append(x.to(dev))
+        return tuple(out)
 
 
 # ---- table building (host numpy) -----------------------------------------

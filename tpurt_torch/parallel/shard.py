@@ -10,11 +10,14 @@ The scene and BVH are replicated once per distinct device of the mesh.
 Shards run in turn, in rank order (t * S + s), and the spp mean is
 summed in rank order on the mesh's first device, so the result does not
 depend on timing. A mesh may name one device more than once: that is how
-the CPU tests get eight shards and how one card runs a 2x2 mesh.
+the CPU tests get eight shards and how one card runs a 2x2 mesh. Each
+shard runs with its card as the thread's current device, where the
+kernels' ctypes launches run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import List, Optional
 
@@ -28,6 +31,7 @@ from tpurt_torch.integrator.wavefront import RayStats, render_rows_stats
 from tpurt_torch.kernels import cudalib
 from tpurt_torch.runtime.device import DeviceNotFound, resolve_device, to_device
 from tpurt_torch.scene.device import DeviceScene
+from tpurt_torch.utils.profiling import annotate
 
 
 class Mesh:
@@ -76,6 +80,13 @@ def make_mesh(n_tile: int = 1, n_spp: Optional[int] = None, devices=None) -> Mes
     return Mesh([devices[t * n_spp:(t + 1) * n_spp] for t in range(n_tile)])
 
 
+def _current(device: torch.device):
+    """`device` as the thread's current CUDA device over the body (a CUDA
+    launch through ctypes runs on the current device); nothing off the
+    card."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 def _band_sizes(height: int, n_tile: int, chunk_rows: int):
     """tpurt's row bands: each a multiple of the tile axis, about
     `chunk_rows` rows (the whole frame when chunk_rows <= 0)."""
@@ -113,20 +124,25 @@ def render_sample_stats_sharded(scene: DeviceScene, bvh, camera: Camera, sample_
         for t in range(n_tile):
             acc = None
             for s in range(n_spp):
-                sc, bv = mesh.replica(scene, bvh, mesh.devices[t][s])
-                img, st = render_rows_stats(sc, bv, camera, int(sample_index) * n_spp + s,
-                                            row + t * rows, rows=rows, width=width,
-                                            height=height, cfg=cfg, has_alpha=has_alpha,
-                                            tex_flags=tex_flags)
+                dev = mesh.devices[t][s]
+                sc, bv = mesh.replica(scene, bvh, dev)
+                with _current(dev):
+                    img, st = render_rows_stats(sc, bv, camera, int(sample_index) * n_spp + s,
+                                                row + t * rows, rows=rows, width=width,
+                                                height=height, cfg=cfg, has_alpha=has_alpha,
+                                                tex_flags=tex_flags)
                 total += (st.logical, st.physical)
-                img = img.to(first)
-                acc = img if acc is None else acc + img
-            tiles.append(acc if n_spp == 1 else acc / n_spp)
+                with annotate("shard_reduce"):
+                    img = img.to(first)
+                    acc = img if acc is None else acc + img
+            with annotate("shard_reduce"):
+                tiles.append(acc if n_spp == 1 else acc / n_spp)
         bands.append(torch.cat(tiles, dim=0))
         row += band_rows
     out = bands[0] if len(bands) == 1 else torch.cat(bands, dim=0)
     for dev in mesh.distinct():
-        cudalib.check_kernel_errors(dev)
+        with _current(dev):
+            cudalib.check_kernel_errors(dev)
     return (out, n_spp * cfg.spp_per_launch,
             RayStats(logical=float(total[0]), physical=float(total[1])))
 
@@ -153,20 +169,22 @@ class ShardedRenderer:
         self.mesh = mesh
 
     def step(self) -> torch.Tensor:
-        r = self.r
-        cfg = r.config
-        t0 = time.perf_counter()
-        launch_index = r.sample_count // (self.mesh.shape["spp"] * cfg.spp_per_launch)
-        radiance, delivered, stats = render_sample_stats_sharded(
-            r.device_scene, r.bvh, r.camera, launch_index, self.mesh, width=cfg.width,
-            height=cfg.height, cfg=cfg, has_alpha=r.has_alpha, chunk_rows=cfg.chunk_rows,
-            tex_flags=r.tex_flags)
-        r.sample_count += delivered
-        r.accum = film.accumulate(r.accum, radiance.to(r.device), launch_index + 1)
-        r.last_stats = stats
-        r.rays = RayStats(r.rays.logical + stats.logical, r.rays.physical + stats.physical)
-        r.sample_time += time.perf_counter() - t0
-        return r.accum
+        with annotate("launch"):
+            r = self.r
+            cfg = r.config
+            t0 = time.perf_counter()
+            launch_index = r.sample_count // (self.mesh.shape["spp"] * cfg.spp_per_launch)
+            radiance, delivered, stats = render_sample_stats_sharded(
+                r.device_scene, r.bvh, r.camera, launch_index, self.mesh, width=cfg.width,
+                height=cfg.height, cfg=cfg, has_alpha=r.has_alpha, chunk_rows=cfg.chunk_rows,
+                tex_flags=r.tex_flags)
+            r.sample_count += delivered
+            with annotate("accumulate"):
+                r.accum = film.accumulate(r.accum, radiance.to(r.device), launch_index + 1)
+            r.last_stats = stats
+            r.rays = RayStats(r.rays.logical + stats.logical, r.rays.physical + stats.physical)
+            r.sample_time += time.perf_counter() - t0
+            return r.accum
 
     def render(self, spp: int) -> torch.Tensor:
         while self.r.sample_count < spp:

@@ -56,6 +56,7 @@ from tpurt_torch.scene.device import DeviceScene, build_device_scene
 from tpurt_torch.scene.gltf import camera_for_render, load_gltf
 from tpurt_torch.scene.types import NO_TEXTURE, SceneData
 from tpurt_torch.utils import debug
+from tpurt_torch.utils.profiling import annotate
 
 # errors a smaller row band can fix (tpurt's list): a launch killed by a
 # wall-time limit, a lost transport, or memory exhausted
@@ -206,8 +207,9 @@ class Renderer:
 
     def set_camera(self, camera: Camera) -> None:
         """Any camera change resets accumulation."""
-        self.camera = camera.to(self.device)
-        self.reset()
+        with annotate("set_camera"):
+            self.camera = camera.to(self.device)
+            self.reset()
 
     def step(self) -> torch.Tensor:
         """One launch of cfg.spp_per_launch samples per pixel; returns the
@@ -224,37 +226,39 @@ class Renderer:
         return self._step_once()
 
     def _step_once(self) -> torch.Tensor:
-        cfg = self.config
-        if self.sample_count >= cfg.max_samples:
-            self._finish()
+        with annotate("launch"):
+            cfg = self.config
+            if self.sample_count >= cfg.max_samples:
+                self._finish()
+                return self.accum
+            if self._wall_start is None:
+                self._wall_start = time.perf_counter()
+            # a concurrent reset() (a viewer's camera move) may clear
+            # _wall_start mid-step; the stale time is overwritten after it
+            wall_start = self._wall_start
+            spp = cfg.spp_per_launch
+            launch_index = self.sample_count // spp
+            radiance, stats = render_sample_stats(
+                self.device_scene, self.bvh, self.camera, launch_index,
+                width=cfg.width, height=cfg.height, cfg=cfg, has_alpha=self.has_alpha,
+                chunk_rows=self._chunk_rows_now, tex_flags=self.tex_flags)
+            if debug.checks_enabled():
+                debug.check_sample(radiance, self.sample_count)
+            self.sample_count += spp
+            with annotate("accumulate"):
+                self.accum = film.accumulate(self.accum, radiance, launch_index + 1)
+                if self._pacer.submit(self.accum) is not None:  # the oldest frame retired
+                    cudalib.check_kernel_errors(self.device)
+            self._accum_history.append((self.sample_count, self.accum))
+            if len(self._accum_history) > 6:
+                del self._accum_history[0]
+            self.sample_time = self._time_base + time.perf_counter() - wall_start
+            self.last_stats = stats
+            self.rays = RayStats(self.rays.logical + stats.logical,
+                                 self.rays.physical + stats.physical)
+            if self.sample_count >= cfg.max_samples:
+                self._finish()
             return self.accum
-        if self._wall_start is None:
-            self._wall_start = time.perf_counter()
-        # a concurrent reset() (a viewer's camera move) may clear
-        # _wall_start mid-step; the stale time is overwritten after it
-        wall_start = self._wall_start
-        spp = cfg.spp_per_launch
-        launch_index = self.sample_count // spp
-        radiance, stats = render_sample_stats(
-            self.device_scene, self.bvh, self.camera, launch_index,
-            width=cfg.width, height=cfg.height, cfg=cfg, has_alpha=self.has_alpha,
-            chunk_rows=self._chunk_rows_now, tex_flags=self.tex_flags)
-        if debug.checks_enabled():
-            debug.check_sample(radiance, self.sample_count)
-        self.sample_count += spp
-        self.accum = film.accumulate(self.accum, radiance, launch_index + 1)
-        if self._pacer.submit(self.accum) is not None:  # the oldest frame retired
-            cudalib.check_kernel_errors(self.device)
-        self._accum_history.append((self.sample_count, self.accum))
-        if len(self._accum_history) > 6:
-            del self._accum_history[0]
-        self.sample_time = self._time_base + time.perf_counter() - wall_start
-        self.last_stats = stats
-        self.rays = RayStats(self.rays.logical + stats.logical,
-                             self.rays.physical + stats.physical)
-        if self.sample_count >= cfg.max_samples:
-            self._finish()
-        return self.accum
 
     def _recover_launch_failure(self, err: Exception) -> None:
         """Roll back to the newest state of the history (every entry is
@@ -319,7 +323,8 @@ class Renderer:
     # ---- output ---------------------------------------------------------------
 
     def tonemapped(self) -> torch.Tensor:
-        return film.tonemap(self.accum, self.config.exposure)
+        with annotate("tonemap"):
+            return film.tonemap(self.accum, self.config.exposure)
 
     def save_png(self, path: str) -> None:
         film.save_png(path, self.tonemapped())

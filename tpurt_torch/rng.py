@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from tpurt_torch.utils.profiling import host_sync
+
 _MASK = 0xFFFFFFFF
 # exact 2^-32 and the largest float32 below 1 (see tpurt/rng.py)
 _INV_2_32 = 2.3283064365386963e-10
@@ -20,7 +22,11 @@ _ONE_MINUS_EPS = 1.0 - 2.0 ** -24
 def _u32(x, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & _MASK
-    return torch.as_tensor(x, dtype=torch.int64, device=device) & _MASK
+    if device is None:
+        return torch.as_tensor(x, dtype=torch.int64) & _MASK
+    with host_sync("scalar_h2d"):  # a copy from the host to `device`
+        x = torch.as_tensor(x, dtype=torch.int64, device=device)
+    return x & _MASK
 
 
 def pcg_hash(x) -> torch.Tensor:

@@ -26,6 +26,8 @@ from typing import List, Optional
 
 import torch
 
+from tpurt_torch.utils.profiling import host_sync
+
 FRAMES_IN_FLIGHT = 3  # tpurt's ring depth
 
 
@@ -111,7 +113,8 @@ class FramePacer:
         if len(self._inflight) > self.depth:
             oldest, event = self._inflight.popleft()
             if event is not None:
-                event.synchronize()
+                with host_sync("pacer"):
+                    event.synchronize()
             return oldest
         return None
 
@@ -122,5 +125,6 @@ class FramePacer:
         self._inflight.clear()
         for _, event in out:
             if event is not None:
-                event.synchronize()
+                with host_sync("pacer"):
+                    event.synchronize()
         return [value for value, _ in out]

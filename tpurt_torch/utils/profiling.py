@@ -4,11 +4,21 @@
   when there is one) that writes a Chrome trace (`*.json`) into
   `log_dir`; open it in Perfetto or chrome://tracing.
 - `annotate(name)`: a named range in that trace
-  (`torch.profiler.record_function`), and an NVTX range once the process
-  has a CUDA context. The integrator opens them under tpurt's own
+  (`torch.profiler.record_function`) while a profiler runs; with none
+  running it costs one flag check. Under
+  `torch.autograd.profiler.emit_nvtx()` every such range is also an NVTX
+  range, for Nsight. The integrator opens them under tpurt's own
   `jax.named_scope` names, and one `wave{k}` range per pass of its host
   wave loop, so a trace splits a sample's host and device time by
-  integrator phase and by wave.
+  integrator phase and by wave. The renderer adds `launch`,
+  `set_camera`, `accumulate` and `tonemap`; the wave loop `camera_rays`;
+  the traversal `ray_sort` and `ray_unsort`; the mesh `shard_reduce`.
+- `host_sync(site)`: a `sync.<site>` range around each point where the
+  host waits for the device (a `nonzero`, an `.item()`, a copy between
+  host and device, an event wait). Sync ranges are leaves, so a trace
+  tells the host's waits from its issue by site.
+- `audit_syncs()`: the cross-check of those ranges against PyTorch's
+  sync debug mode on a card.
 - `KernelTimer`: wall-clock phase timers that wait for the card.
 - `render_stats`: one timed and ray-counted progressive sample.
 
@@ -49,20 +59,101 @@ def trace(log_dir: str):
             log_dir, f"trace_{os.getpid()}_{int(time.time() * 1000)}.json"))
 
 
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+class annotate(contextlib.ContextDecorator):
+    """A named range in profiler traces (tpurt's TraceAnnotation), as a
+    `with` block or a decorator. With no profiler running (torch.profiler,
+    or emit_nvtx) it opens nothing: one flag check."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def _recreate_cm(self):  # each decorated call opens its own range
+        return annotate(self.name)
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        return False
+
+
+def host_sync(site: str):
+    """`with host_sync(site):` around the one call at which the host
+    waits for the device: a `sync.<site>` range while a profiler runs, as
+    `annotate`. It adds no host read and no device op, and nothing opens
+    inside it."""
+    return annotate("sync." + site)
+
+
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
 @contextlib.contextmanager
-def annotate(name: str):
-    """A named range in profiler traces (tpurt's TraceAnnotation); also
-    an NVTX range when the process has a CUDA context. Costs a few
-    microseconds when no profiler runs."""
-    nvtx = torch.cuda.is_initialized()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
+def audit_syncs():
+    """The cross-check of the `sync.*` ranges on a card: over the body,
+    under a CPU profiler (the ranges open only while one runs) and
+    `torch.cuda.set_sync_debug_mode("warn")`, every call PyTorch warns
+    synchronises the host with the device is tallied against the range
+    open when it warned. Yields a dict filled when the body ends:
+    `ranges` {sync range: [syncs warned in each]}, and `outside`, the code
+    line (file:line in the package, or the outermost caller's) of each
+    sync warned outside any `sync.*` range. The mode does not warn at an
+    event wait (`cudaEventSynchronize`, `sync.pacer`)."""
+    import traceback
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    rf = torch.autograd.profiler.record_function
+    enter, leave = rf.__enter__, rf.__exit__
+    out = {"ranges": {}, "outside": []}
+    stack = []  # [name, syncs warned] of each open range, innermost last
+
+    def _enter(self):
+        stack.append([self.name, 0])
+        return enter(self)
+
+    def _exit(self, *exc):
+        name, n = stack.pop()
+        if name.startswith("sync."):
+            out["ranges"].setdefault(name, []).append(n)
+        return leave(self, *exc)
+
+    def _show(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            return shown(message, category, filename, lineno, file, line)
+        if stack and stack[-1][0].startswith("sync."):
+            stack[-1][1] += 1
+            return None
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "tpurt_torch" in f.filename and not f.filename.endswith("profiling.py")]
+        f = frames[-1] if frames else traceback.extract_stack()[0]
+        out["outside"].append(f"{os.path.relpath(f.filename)}:{f.lineno}")
+        return None
+
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+        warnings.showwarning = _show
+        rf.__enter__, rf.__exit__ = _enter, _exit
+        torch.cuda.set_sync_debug_mode("warn")
         try:
-            yield
+            with profile(activities=[ProfilerActivity.CPU]):
+                yield out
         finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+            torch.cuda.set_sync_debug_mode(mode)
+            rf.__enter__, rf.__exit__ = enter, leave
 
 
 @dataclasses.dataclass
