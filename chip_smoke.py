@@ -6,10 +6,11 @@
 Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
 
   device   card name, power limit, torch version; no card is an error
-  build    nvcc the four CUDA sources (wide_traverse.cu, rope_traverse.cu,
-           wide_octet.cu, wide_stepcost.cu) and g++ the native host core,
-           all at once; ptxas's registers, stack frame and spills for each
-           instantiation of K1/K2, K3/K4, K5 and K6
+  build    nvcc the five CUDA sources (wide_traverse.cu, rope_traverse.cu,
+           wide_octet.cu, wide_stepcost.cu, shade_wave.cu) and g++ the
+           native host core, all at once; ptxas's registers, stack frame and
+           spills for each instantiation of K1/K2, K3/K4, K5 and K6 and for
+           the shading kernels S1 and S2
   scene    write the bench's Sponza-like scene (~215k triangles), load it,
            build the renderer at 1920x1080 on the card (its wide tables and
            K1/K2's card tables), time each host step
@@ -57,6 +58,15 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            over the sample, with the ranges per sample and the host cost
            of one range outside the profiler; no K1 or K2 in the trace, or
            no annotation, fails the phase
+  shade    the wave's shading kernels S1 and S2 (shade_wave.cu) against
+           the plain PyTorch block (wavefront.shade_nee_plain) on the first,
+           whole-frame wave of the bench scene at 1920x1080 and of the
+           benchmark's helmet cell (perfbench's configuration, 512x512): the
+           nine full-width outputs bit-equal on every lane; S1 and S2 timed
+           alone beside their bytes bound (shade_bytes, at 3.35 TB/s), the
+           card block (S1, the shadow trace, S2) beside the plain block;
+           then one profiled_step of each renderer: S1 and S2 launch once a
+           wave with shaded lanes, traced as often as counted
   rope     the rope path: Renderer(..., bvh=build_triangle_bvh(tri, 8)) on
            the same scene, camera and lights, 1 warm-up and 2 timed samples
            with every launch counter zeroed just before; K3 must launch, K1,
@@ -180,7 +190,8 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            printed on the phase's line
 
 Then it prints the card's name and power limit as nvidia-smi gives them,
-the {"kernels": [...]} line (K1-K6; K1-K3 with their whole-frame waves
+the {"kernels": [...]} line (K1-K6, then S1 and S2 with the `shade`
+phase's waves and launches; K1-K3 with their whole-frame waves
 and their share of a traced sample, K1/K2 with their arity-8,
 device-LBVH, cache, viewer and shard runs, K3 with its warm `tri`
 start), and last {"ok": true, "device": {...}}. The smoke turns the
@@ -334,6 +345,8 @@ def compare_exact(k, p):
 
 # the templates of K1/K2 and of K3/K4, each <Occlusion, Masks>
 WALKS = {"wide_walk": ("K1", "K2"), "rope_walk": ("K3", "K4")}
+# the kernels of csrc/shade_wave.cu, by their launch counters' names
+SHADE_KERNELS = {"shade_sample": "S1", "shade_mis": "S2"}
 # K6's <DoBox, DoExtract, DoPush, DoLeaf> of each kernel_bench configuration
 STEPCOST_TEMPLATES = {(1, 1, 1, 1): "full", (1, 1, 1, 0): "-leaf", (1, 1, 0, 0): "-push",
                       (1, 0, 0, 0): "-extract", (0, 0, 0, 0): "-box"}
@@ -352,8 +365,11 @@ def template_resources(report, template, label):
 
 
 def kernel_of(kernel_name):
-    """'K1'-'K4' for a traced wide_walk or rope_walk kernel (demangled or
-    not), else None."""
+    """'K1'-'K4' for a traced wide_walk or rope_walk kernel, 'S1' or 'S2'
+    for a shading kernel (demangled or not), else None."""
+    m = re.search(r"shade_(sample|mis)(?![a-z_])", kernel_name)
+    if m is not None:
+        return SHADE_KERNELS[m.group(0)]
     for walk, ids in WALKS.items():
         m = re.search(walk + r"(?:<|ILb)(true|false|1|0)", kernel_name)
         if m is not None:
@@ -447,6 +463,8 @@ def profiled_step(rr, checks):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from tpurt_torch.kernels import shade
+
     discarded = []
     for _ in range(2):
         zero_launch_counts()
@@ -457,7 +475,7 @@ def profiled_step(rr, checks):
             rr.step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        traced = launch_counts()
+        traced = {**launch_counts(), **shade.LAUNCHES}
         if rr.sample_count != done + 1:
             raise RuntimeError(f"the traced step rendered {rr.sample_count - done} samples")
         summary = trace_summary(prof, wall, tuple(checks))
@@ -476,15 +494,16 @@ def timed_kernel(kern):
 
 
 def zero_launch_counts():
-    from tpurt_torch.kernels import wide
+    from tpurt_torch.kernels import shade, wide
     from tpurt_torch.kernels.experimental import rope
 
-    for counts in (wide.LAUNCHES, rope.LAUNCHES):
+    for counts in (wide.LAUNCHES, rope.LAUNCHES, shade.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def launch_counts():
+    """The traversal kernels' launch counters (K1-K6)."""
     from tpurt_torch.kernels import wide
     from tpurt_torch.kernels.experimental import rope
 
@@ -1240,6 +1259,129 @@ def lbvh_phase(info, r, scene, camera, lights, kb, o_cam, d_cam, wide_img, wide_
     return launches
 
 
+def shade_bytes(fold, taps):
+    """Bytes S1 and S2 each read and write a lane (csrc/shade_wave.cu): the
+    wave's arrays at the lane's index, the 160-byte shading row, a table
+    row and a 16-byte quad a texture tap, the shadow rays (one folded, two
+    otherwise) and S1's per-lane values for S2; the lights stay cached."""
+    rays = 1 if fold else 2
+    s1_read = 8 + 12 + 12 + 8 + 4 + 16 + 160 + taps * (40 + 16)
+    s1_write = 8 + 12 + 4 + 1 + 12 + 12 + 4 + rays * 42 + 44
+    s2 = 8 + 12 + 4 + 44 + rays * 18 + 16
+    return {"S1": s1_read + s1_write, "S2": s2}
+
+
+def same_lanes(a, b):
+    """Per lane: every element equal, floats by their bits (NaN = NaN)."""
+    import torch
+
+    a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    if a.dtype == torch.float32:
+        eq = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+    else:
+        eq = a == b
+    return eq.all(dim=1)
+
+
+def shade_phase(info, r, kernel_rows):
+    """S1/S2 against the plain block (wavefront.shade_nee_plain) on the
+    first, whole-frame wave of the bench scene at 1920x1080 and of the
+    benchmark's helmet cell (its configuration, 512x512): the nine outputs
+    bit-equal, S1 and S2 timed alone beside the bytes bound, the whole card
+    block (S1, the shadow trace, S2) beside the plain block; then one
+    profiled step of each renderer, in which S1 and S2 must launch once a
+    wave with shaded lanes and be traced as often as counted."""
+    import torch
+    from perfbench import harness
+    from tpurt_torch.camera import Camera
+    from tpurt_torch.config import RenderConfig, SphereLight
+    from tpurt_torch.integrator import wavefront as W
+    from tpurt_torch.kernel_bench import PEAK_BYTES
+    from tpurt_torch.kernels import cudalib, shade
+    from tpurt_torch.renderer import Renderer
+
+    dev = r.device
+    tmp = tempfile.mkdtemp()
+    hcfg = harness.load_json(harness.HERE, "configs", "helmet.json")
+    t0 = time.perf_counter()
+    hgltf, _ = harness.scene_files(hcfg, tmp)
+    cam = hcfg["camera"]
+    renderers = {
+        "sponza_like_1080p": Renderer(r.device_scene, config=r.config, camera=r.camera,
+                                      device=dev, bvh=r.bvh),
+        "helmet_512": Renderer.from_gltf(
+            hgltf, config=RenderConfig(width=512, height=512, max_samples=1024),
+            camera=Camera.from_angles(cam["position"], cam["phi"], cam["theta"]),
+            lights=[SphereLight(tuple(l["position"]), l["radius"], tuple(l["color"]),
+                                l["intensity"]) for l in hcfg["lights"]],
+            device=dev, cache=False)}
+    info["helmet_setup_s"] = round(time.perf_counter() - t0, 3)
+    cases, steps = {}, {}
+    card = W.shade_nee
+    for name, rr in renderers.items():
+        shaded, first = [], []
+
+        def keep(*args, shaded=shaded, first=first):
+            if not first:
+                o, d, state, thr, hit, si = args[5:]
+                first.append(args[:5] + (o.clone(), d.clone(), state.clone(), thr.clone(),
+                                         W.Hit(*(x.clone() for x in hit)), si.clone()))
+            shaded.append(int(args[-1].numel()))
+            return card(*args)
+
+        W.shade_nee = keep
+        try:
+            rr.step()  # warm-up; keeps the first wave
+            torch.cuda.synchronize()
+            shaded.clear()
+            summary, traced, wall, discarded = profiled_step(rr, {"S1": "shade_sample",
+                                                                  "S2": "shade_mis"})
+        finally:
+            W.shade_nee = card
+        waves = sum(1 for m in shaded if m)
+        steps[name] = {"waves_shaded": waves, "launches": {k: traced[k] for k in SHADE_KERNELS},
+                       "S1": summary["S1"], "S2": summary["S2"], "sample_wall_s": wall,
+                       "device_busy_share": summary["device_busy_share"],
+                       "discarded": discarded}
+        if traced["shade_sample"] != waves or traced["shade_mis"] != waves:
+            raise RuntimeError(f"{name}: {waves} shaded waves, launches {steps[name]['launches']}")
+
+        args = first[0]
+        scene, cfg, tex_flags = args[0], args[2], args[3]
+        o, d, state, thr, hit, si = args[5:]
+        k_ms, out_k = cuda_ms(lambda: W.shade_nee_card(*args))
+        p_ms, out_p = cuda_ms(lambda: W.shade_nee_plain(*args))
+        bad = {f: int((~same_lanes(getattr(out_k, f), getattr(out_p, f))).sum())
+               for f in out_p._fields}
+        del out_k, out_p
+        consts = shade.shade_constants(cfg, scene.lights.shape[0])
+        s1 = shade.shade_sample(scene, cfg, tex_flags, o, d, state, thr, hit, si, consts)
+        sh = s1.shadow
+        blocked = W._shadow_blocked(scene, args[1], sh.o, sh.d, sh.t_min, sh.t_limit, sh.active,
+                                    cfg, args[4], sh.ray_class)
+        s1_ms = timed_kernel(lambda: shade.shade_sample(scene, cfg, tex_flags, o, d, state, thr,
+                                                        hit, si, consts))
+        s2_ms = timed_kernel(lambda: shade.shade_mis(scene, cfg, d, thr, si, s1, blocked, consts))
+        m = int(si.numel())
+        lane_bytes = shade_bytes(cfg.fold_bsdf_mis, sum(tex_flags))
+        cases[name] = {"lanes": m, "wave_lanes": int(o.shape[0]), "tex_flags": tex_flags,
+                       "lights": int(scene.lights.shape[0]), "lanes_differ": bad,
+                       "S1": {"ms": s1_ms, "bytes_per_lane": lane_bytes["S1"],
+                              "bound_ms": m * lane_bytes["S1"] / PEAK_BYTES * 1e3},
+                       "S2": {"ms": s2_ms, "bytes_per_lane": lane_bytes["S2"],
+                              "bound_ms": m * lane_bytes["S2"] / PEAK_BYTES * 1e3},
+                       "card_block_ms": k_ms, "plain_block_ms": p_ms}
+        if any(bad.values()):
+            raise RuntimeError(f"{name}: S1/S2 against the plain block, lanes differ: {bad}")
+    cudalib.check_kernel_errors(dev)
+    shutil.rmtree(tmp)
+    info.update(cases=cases, profiled_steps=steps)
+    for k, kern in SHADE_KERNELS.items():
+        kernel_rows.append({"kernel": kern, "source": "tpurt_torch/csrc/shade_wave.cu " + k,
+                            "waves": {n: dict(c[kern], lanes=c["lanes"]) for n, c in cases.items()},
+                            "launches": {n: s["launches"][k] for n, s in steps.items()}})
+
+
 def main():
     _state["t0"] = time.perf_counter()
     # no scene cache unless a phase sets one up: every start is cold
@@ -1296,7 +1438,8 @@ def main():
             return lambda force: cudalib.build(name, force=force)
 
         threads = [threading.Thread(target=run, args=(f"nvcc_{name}", nvcc(name)))
-                   for name in ("wide_traverse", "rope_traverse", "wide_octet", "wide_stepcost")]
+                   for name in ("wide_traverse", "rope_traverse", "wide_octet", "wide_stepcost",
+                                "shade_wave")]
         threads.append(threading.Thread(target=run, args=("gxx_native", native.build)))
         for t in threads:
             t.start()
@@ -1321,6 +1464,11 @@ def main():
                 sorted(info["k6_ptxas"]) != sorted(STEPCOST_TEMPLATES.values()):
             raise RuntimeError(f"ptxas reported {sorted(info['k5_ptxas'])} for K5 and "
                                f"{sorted(info['k6_ptxas'])} for K6")
+        info["s1_s2_ptxas"] = {kernel_of(name): res for name, res
+                               in cudalib.kernel_resources("shade_wave").items()
+                               if kernel_of(name)}
+        if sorted(info["s1_s2_ptxas"]) != ["S1", "S2"]:
+            raise RuntimeError(f"ptxas reported {sorted(info['s1_s2_ptxas'])} for shade_wave")
         ptxas = dict(info)
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1741,6 +1889,9 @@ def main():
                                    f"{launches[mode]} launches counted")
         for row, k in ((kernel_rows[0], "K1"), (kernel_rows[1], "K2")):
             row["trace_per_sample"] = summary[k]
+
+    with Phase("shade") as info:
+        shade_phase(info, r, kernel_rows)
 
     with Phase("rope") as info:
         wide_img = accum.cpu().numpy()

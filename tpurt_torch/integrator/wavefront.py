@@ -34,6 +34,7 @@ from tpurt_torch.bvh.traverse import closest_hit, occlusion_hit
 from tpurt_torch.camera import Camera, camera_rays_for_rows
 from tpurt_torch.config import RenderConfig
 from tpurt_torch.kernels import bsdf as B
+from tpurt_torch.kernels import shade
 from tpurt_torch.kernels.bsdf import _dot, _norm
 from tpurt_torch.kernels.intersect import (
     Hit,
@@ -43,6 +44,7 @@ from tpurt_torch.kernels.intersect import (
     mask_cell,
 )
 from tpurt_torch.kernels.lights import pdf_sphere, sample_hemisphere_uniform, sample_sphere
+from tpurt_torch.kernels.shade import WaveShade
 from tpurt_torch.kernels.texture import sample_texture_alpha_quad, sample_texture_quad
 from tpurt_torch.kernels.wide import WideKernelBVH
 from tpurt_torch.scene.device import DeviceScene
@@ -177,27 +179,15 @@ def _trace(scene, bvh, o, d, t_min0, active, include_spheres, cfg: RenderConfig,
     return hit
 
 
-def _trace_shadow(scene, bvh, o, d, active, throughput, cfg: RenderConfig,
-                  has_alpha: bool, ray_class=None):
-    """NEE shadow resolution plus the analytic sphere lights. Over the
-    wide tables it is an occlusion query (K2) with the exact alpha recheck
+def _shadow_blocked(scene, bvh, o, d, t_min0, t_limit, active, cfg: RenderConfig,
+                    has_alpha: bool, ray_class=None) -> torch.Tensor:
+    """The shadow trace of _trace_shadow between its sphere test and its
+    payload: True where a surface blocks the ray before `t_limit`. Over
+    the wide tables an occlusion query (K2) with the exact alpha recheck
     and occlusion re-trace past texture-rejected hits; on the rope path a
-    full closest-hit trace (K3) with the alpha re-trace, as in tpurt.
-    Returns (rgb (N, 3), alpha code (N,), is_miss (N,)) in the
-    reference's payload protocol."""
+    full closest-hit trace (K3) with the alpha re-trace, as in tpurt."""
     n = o.shape[0]
     dev = o.device
-    t_min0 = torch.zeros(n, dtype=torch.float32, device=dev)
-    t_max = float(np.float32(cfg.t_max))
-    if scene.lights.shape[0] > 0:
-        with annotate("shadow_spheres"):
-            s_hit, s_t, s_id = intersect_spheres(o, d, scene.lights, t_min0, t_max)
-            s_hit = s_hit & active
-    else:
-        s_hit = torch.zeros(n, dtype=torch.bool, device=dev)
-        s_t = torch.full((n,), t_max, dtype=torch.float32, device=dev)
-        s_id = torch.zeros(n, dtype=torch.int32, device=dev)
-    t_limit = torch.where(s_hit, s_t, torch.full_like(s_t, t_max))
     if isinstance(bvh, WideKernelBVH):
         if ray_class is None:
             ray_class = (torch.arange(n, device=dev) >= (n // 2)).to(torch.int32)
@@ -229,13 +219,35 @@ def _trace_shadow(scene, bvh, o, d, active, throughput, cfg: RenderConfig,
                     rej = rej2
                 # re-trace cap reached: the rejected hit stays a surface (black)
                 blocked = blocked | rej
+        return blocked
+    # the rope path (tpurt:486-490): a full closest-hit trace with the
+    # alpha re-trace; <= commits a surface tied with the sphere, as the
+    # closest-hit formulation does (s_hit needed s_t < t)
+    hit = _trace(scene, bvh, o, d, t_min0, active, False, cfg, has_alpha, sort_rays=False)
+    return active & (hit.kind == KIND_TRIANGLE) & (hit.t <= t_limit)
+
+
+def _trace_shadow(scene, bvh, o, d, active, throughput, cfg: RenderConfig,
+                  has_alpha: bool, ray_class=None):
+    """NEE shadow resolution plus the analytic sphere lights: the sphere
+    test, the trace (_shadow_blocked) and the payload. Returns (rgb (N,
+    3), alpha code (N,), is_miss (N,)) in the reference's payload
+    protocol."""
+    n = o.shape[0]
+    dev = o.device
+    t_min0 = torch.zeros(n, dtype=torch.float32, device=dev)
+    t_max = float(np.float32(cfg.t_max))
+    if scene.lights.shape[0] > 0:
+        with annotate("shadow_spheres"):
+            s_hit, s_t, s_id = intersect_spheres(o, d, scene.lights, t_min0, t_max)
+            s_hit = s_hit & active
     else:
-        # the rope path (tpurt:486-490): a full closest-hit trace with the
-        # alpha re-trace; <= commits a surface tied with the sphere, as the
-        # closest-hit formulation does (s_hit needed s_t < t)
-        hit = _trace(scene, bvh, o, d, t_min0, active, False, cfg, has_alpha,
-                     sort_rays=False)
-        blocked = active & (hit.kind == KIND_TRIANGLE) & (hit.t <= t_limit)
+        s_hit = torch.zeros(n, dtype=torch.bool, device=dev)
+        s_t = torch.full((n,), t_max, dtype=torch.float32, device=dev)
+        s_id = torch.zeros(n, dtype=torch.int32, device=dev)
+    t_limit = torch.where(s_hit, s_t, torch.full_like(s_t, t_max))
+    blocked = _shadow_blocked(scene, bvh, o, d, t_min0, t_limit, active, cfg, has_alpha,
+                              ray_class)
 
     with annotate("shadow_payload"):
         with host_sync("scalar_h2d"):
@@ -460,6 +472,91 @@ def bounce_sample(cfg: RenderConfig, state, sp: Shade, wo, d, throughput):
 
 # ---- the wave loop ------------------------------------------------------------
 
+def shade_nee_plain(scene: DeviceScene, bvh, cfg: RenderConfig, tex_flags, has_alpha: bool,
+                    o, d, state, throughput, hit: Hit, si) -> WaveShade:
+    """The per-hit block of a wave in PyTorch, on the triangle-hit lanes
+    `si` only: shade_hit, nee_directions, bounce_sample, the shadow trace
+    and the MIS terms, scattered back to the wave's n lanes. The plain
+    version of shade_nee_card; CPU tensors take it."""
+    dev = o.device
+    n = o.shape[0]
+    nl = scene.lights.shape[0]
+    o_s, d_s, state_s, thr_s = o[si], d[si], state[si], throughput[si]
+    hit_s = Hit(*(x[si] for x in hit))
+    m = o_s.shape[0]
+    tri_s = torch.ones(m, dtype=torch.bool, device=dev)
+    sp = shade_hit(scene, cfg, tex_flags, o_s, d_s, hit_s)
+    state_s, nee_o, dir1, dir2, pick_env, lt, wo, al_b = nee_directions(
+        scene, cfg, state_s, sp, d_s)
+    state_s, bounce_dir, t_new, killed, offset = bounce_sample(
+        cfg, state_s, sp, wo, d_s, thr_s)
+    if cfg.fold_bsdf_mis:
+        with annotate("trace_shadow"):
+            rgb1, a1, miss1 = _trace_shadow(scene, bvh, nee_o, dir1, tri_s, thr_s,
+                                            cfg, has_alpha,
+                                            ray_class=pick_env.to(torch.int32))
+        miss_inc = miss1.to(torch.int32)
+        local_l = sp.emissive + mis_light_contribution(
+            scene, cfg, sp, wo, dir1, pick_env, lt, rgb1, a1)
+        fold_w = fold_mis_weight(sp, wo, bounce_dir, al_b) * float(nl + 1) * thr_s
+    else:
+        with annotate("trace_shadow"):
+            rgb12, a12, miss12 = _trace_shadow(
+                scene, bvh, torch.cat([nee_o, nee_o]), torch.cat([dir1, dir2]),
+                torch.cat([tri_s, tri_s]), torch.cat([thr_s, thr_s]), cfg, has_alpha)
+        miss_inc = miss12[:m].to(torch.int32) + miss12[m:].to(torch.int32)
+        local_l = sp.emissive + mis_contributions(
+            scene, cfg, sp, wo, dir1, dir2, pick_env, lt, al_b,
+            rgb12[:m], rgb12[m:], a12[:m], a12[m:])
+        fold_w = torch.zeros(m, dtype=torch.float32, device=dev)
+    zero3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    zero1 = torch.zeros(n, dtype=torch.float32, device=dev)
+    return WaveShade(state=_scatter(state, si, state_s),
+                     miss_inc=_scatter(torch.zeros(n, dtype=torch.int32, device=dev), si,
+                                       miss_inc),
+                     local_l=_scatter(zero3, si, local_l),
+                     bounce_dir=_scatter(zero3, si, bounce_dir),
+                     t_new=_scatter(zero1, si, t_new),
+                     killed=_scatter(torch.zeros(n, dtype=torch.bool, device=dev), si, killed),
+                     new_o=_scatter(zero3, si, sp.hit_point + offset),
+                     albedo=_scatter(zero3, si, sp.albedo),
+                     fold_w=_scatter(zero1, si, fold_w))
+
+
+def shade_nee_card(scene: DeviceScene, bvh, cfg: RenderConfig, tex_flags, has_alpha: bool,
+                   o, d, state, throughput, hit: Hit, si) -> WaveShade:
+    """shade_nee_plain on the card: S1 (csrc/shade_wave.cu) shades the
+    lanes `si`, samples both NEE directions and the bounce and tests the
+    shadow rays against the sphere lights; the shadow trace runs as in the
+    plain version (_shadow_blocked); S2 adds the payload and the MIS
+    terms. Both write the wave's n lanes directly; with no lane to shade
+    nothing launches."""
+    consts = shade.shade_constants(cfg, scene.lights.shape[0])
+    with annotate("shade_sample"):
+        s1 = shade.shade_sample(scene, cfg, tex_flags, o, d, state, throughput, hit, si, consts)
+    if si.shape[0] == 0:
+        return s1.wave
+    sh = s1.shadow
+    with annotate("trace_shadow"):
+        blocked = _shadow_blocked(scene, bvh, sh.o, sh.d, sh.t_min, sh.t_limit, sh.active, cfg,
+                                  has_alpha, sh.ray_class)
+    with annotate("shade_mis"):
+        return shade.shade_mis(scene, cfg, d, throughput, si, s1, blocked, consts)
+
+
+def shade_nee(scene: DeviceScene, bvh, cfg: RenderConfig, tex_flags, has_alpha: bool,
+              o, d, state, throughput, hit: Hit, si) -> WaveShade:
+    """The per-hit block of a wave on the lanes `si`: the kernels on CUDA
+    tensors, the plain version on CPU tensors; any other device raises."""
+    if o.is_cuda:
+        fn = shade_nee_card
+    elif o.device.type == "cpu":
+        fn = shade_nee_plain
+    else:
+        raise ValueError(f"no shading block for device {o.device}")
+    return fn(scene, bvh, cfg, tex_flags, has_alpha, o, d, state, throughput, hit, si)
+
+
 def trace_paths(scene: DeviceScene, bvh, o, d, state, *, cfg: RenderConfig,
                 has_alpha: bool, return_stats: bool = False,
                 tex_flags: Tuple[bool, bool, bool, bool] = (True, True, True, True)):
@@ -476,39 +573,7 @@ def trace_paths(scene: DeviceScene, bvh, o, d, state, *, cfg: RenderConfig,
     with host_sync("scalar_h2d"):
         sky = torch.tensor(cfg.sky_color, dtype=torch.float32, device=dev)
     fold = bool(cfg.fold_bsdf_mis)
-    nl = scene.lights.shape[0]
     logical = physical = 0
-
-    def shade_nee(o_s, d_s, state_s, thr_s, hit_s: Hit):
-        """The per-hit block of a wave, on triangle-hit lanes only."""
-        m = o_s.shape[0]
-        tri_s = torch.ones(m, dtype=torch.bool, device=dev)
-        sp = shade_hit(scene, cfg, tex_flags, o_s, d_s, hit_s)
-        state_s, nee_o, dir1, dir2, pick_env, lt, wo, al_b = nee_directions(
-            scene, cfg, state_s, sp, d_s)
-        state_s, bounce_dir, t_new, killed, offset = bounce_sample(
-            cfg, state_s, sp, wo, d_s, thr_s)
-        if fold:
-            with annotate("trace_shadow"):
-                rgb1, a1, miss1 = _trace_shadow(scene, bvh, nee_o, dir1, tri_s, thr_s,
-                                                cfg, has_alpha,
-                                                ray_class=pick_env.to(torch.int32))
-            miss_inc = miss1.to(torch.int32)
-            local_l = sp.emissive + mis_light_contribution(
-                scene, cfg, sp, wo, dir1, pick_env, lt, rgb1, a1)
-            fold_w = fold_mis_weight(sp, wo, bounce_dir, al_b) * float(nl + 1) * thr_s
-        else:
-            with annotate("trace_shadow"):
-                rgb12, a12, miss12 = _trace_shadow(
-                    scene, bvh, torch.cat([nee_o, nee_o]), torch.cat([dir1, dir2]),
-                    torch.cat([tri_s, tri_s]), torch.cat([thr_s, thr_s]), cfg, has_alpha)
-            miss_inc = miss12[:m].to(torch.int32) + miss12[m:].to(torch.int32)
-            local_l = sp.emissive + mis_contributions(
-                scene, cfg, sp, wo, dir1, dir2, pick_env, lt, al_b,
-                rgb12[:m], rgb12[m:], a12[:m], a12[m:])
-            fold_w = torch.zeros(m, dtype=torch.float32, device=dev)
-        return (state_s, miss_inc, local_l, bounce_dir, t_new, killed,
-                sp.hit_point + offset, sp.albedo, fold_w)
 
     wave_idx = 0
     while True:
@@ -542,20 +607,11 @@ def trace_paths(scene: DeviceScene, bvh, o, d, state, *, cfg: RenderConfig,
                                                   sky[None, :] * throughput[:, None], zero3)
 
             si = _nz(is_tri, "shade_lanes")
-            hit_s = Hit(*(x[si] for x in hit))
-            outs = shade_nee(o[si], d[si], state[si], throughput[si], hit_s)
-            (st_c, mi_c, ll_c, bd_c, tn_c, kl_c, no_c, al_c, fw_c) = outs
             # lanes left out of the shade block are terminated: their rng state
             # is never read again, and every other output is masked below
-            state = _scatter(state, si, st_c)
-            miss_inc = _scatter(torch.zeros_like(depth), si, mi_c)
-            local_l = _scatter(zero3, si, ll_c)
-            bounce_dir = _scatter(zero3, si, bd_c)
-            t_new = _scatter(torch.zeros_like(throughput), si, tn_c)
-            killed = _scatter(torch.zeros_like(active), si, kl_c)
-            new_o = _scatter(zero3, si, no_c)
-            sh_albedo = _scatter(zero3, si, al_c)
-            fold_w = _scatter(torch.zeros_like(throughput), si, fw_c)
+            (state, miss_inc, local_l, bounce_dir, t_new, killed, new_o, sh_albedo,
+             fold_w) = shade_nee(scene, bvh, cfg, tex_flags, has_alpha, o, d, state,
+                                 throughput, hit, si)
 
             depth = depth + miss_inc
             can_bounce = depth < cfg.max_depth
