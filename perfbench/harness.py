@@ -78,19 +78,27 @@ def metric_reader(name: str):
 
 # ---- the scene files ------------------------------------------------------------------
 
-def scene_files(config: dict, cache_dir: str = CACHE):
-    """(glTF path for the program, npz path of the reference's arrays),
-    written by the configuration's scene writer on first use. The names
-    hold a digest of the writer's sources and parameters, so a changed
-    writer writes new files."""
+def scene_paths(config: dict, cache_dir: str = CACHE):
+    """(glTF path for the program, npz path of the reference's arrays) of
+    the configuration's scene. The names hold a digest of what writes
+    the files: the writer's name and parameters, its own source
+    (`scenes/<writer>.py`) and the shared `scenes/gltf_writer.py`, the
+    only module of the benchmark a writer may import. A changed writer
+    writes new files; another configuration's new writer renames none."""
     h = hashlib.sha256(json.dumps([config["scene"], config["scene_params"]],
                                   sort_keys=True).encode())
-    for fname in sorted(os.listdir(os.path.join(HERE, "scenes"))):
-        if fname.endswith(".py"):
-            with open(os.path.join(HERE, "scenes", fname), "rb") as f:
-                h.update(f.read())
+    for fname in (config["scene"] + ".py", "gltf_writer.py"):
+        with open(os.path.join(HERE, "scenes", fname), "rb") as f:
+            h.update(f.read())
     stem = os.path.join(cache_dir, "scenes", f"{config['name']}-{h.hexdigest()[:16]}")
-    gltf, npz = stem + ".gltf", stem + ".npz"
+    return stem + ".gltf", stem + ".npz"
+
+
+def scene_files(config: dict, cache_dir: str = CACHE):
+    """`scene_paths`, written by the configuration's scene writer on
+    first use."""
+    gltf, npz = scene_paths(config, cache_dir)
+    stem = os.path.splitext(gltf)[0]
     if not (os.path.isfile(gltf) and os.path.isfile(npz)):
         os.makedirs(os.path.dirname(stem), exist_ok=True)
         mod = importlib.import_module(f"perfbench.scenes.{config['scene']}")

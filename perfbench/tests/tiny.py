@@ -1,22 +1,25 @@
 """The benchmark's cells at a size the CPU runs in seconds: the same
 files, with smaller scenes, images, checks and profiled windows, on CPU
-devices (the kernels' plain versions)."""
+devices (the kernels' plain versions). A configuration's small scene is
+its writer's `tiny_scene_params`, from the configuration's own file,
+laid over its `scene_params`."""
 
 from __future__ import annotations
 
 import copy
+import os
 
 from perfbench import harness
-
-SCENES = {"sponza": dict(columns=3, stacks=2, segments=8, rings=6, drapes=2, drape=(4, 3),
-                         leaf=1.5, plant_blades=4, texture_size=16, triangles=0),
-          "helmet": dict(segments=24, rings=18, texture_size=64, triangles=0)}
 
 
 def spec(name: str, cache_dir: str) -> dict:
     s = copy.deepcopy(harness.cell_spec(name))
     cfg = s["config"]
-    cfg["scene_params"] = dict(cfg["scene_params"], **SCENES[cfg["scene"]])
+    if "tiny_scene_params" not in cfg:
+        path = os.path.join(harness.HERE, "configs", s["cell"]["config"] + ".json")
+        raise KeyError(f"{path} has no 'tiny_scene_params': the writer parameters that the "
+                       f"CPU tests lay over its 'scene_params'")
+    cfg["scene_params"] = dict(cfg["scene_params"], **cfg["tiny_scene_params"])
     t = s["traffic"]
     t["width"], t["height"] = 64, 48
     t["check"] = dict(t["check"], pixels=48)
