@@ -140,6 +140,16 @@ def _alpha_rejected(scene: DeviceScene, h: Hit, mask, pending=None) -> torch.Ten
     return out
 
 
+def _mark_cap(rej):
+    """After a loop that ran all cfg.max_alpha_skips passes: an empty
+    `alpha_cap` range when rejected lanes are left, whose hits then stand
+    as surfaces. The test waits for the device (its own `sync.alpha_cap`
+    site), so it runs only while a profiler runs."""
+    if torch.autograd._profiler_enabled() and _any_on_host(rej, "alpha_cap"):
+        with annotate("alpha_cap"):
+            pass
+
+
 def _retrace_tmin(t):
     """t_min just past a rejected hit: t * (1 + 1e-6) + 1e-5."""
     return t * float(np.float32(1.0 + 1e-6)) + float(np.float32(1e-5))
@@ -163,19 +173,24 @@ def _trace(scene, bvh, o, d, t_min0, active, include_spheres, cfg: RenderConfig,
         for _ in range(cfg.max_alpha_skips):
             if not _any_on_host(rej, "alpha_any"):
                 break
-            t_min = torch.where(rej, _retrace_tmin(hit.t), t_min)
-            idx = _nz(rej, "alpha_lanes")
-            nh, npend = closest_hit(bvh, scene.lights, o[idx], d[idx],
-                                    t_min[idx], cfg.t_max, include_spheres=include_spheres,
-                                    active=torch.ones_like(idx, dtype=torch.bool),
-                                    sort_rays=sort_rays, return_pending=True,
-                                    policy=cfg.kernel)
-            hit = _hit_scatter(hit, idx, nh)
-            pend_full = None
-            if use_pending:
-                pend_full = torch.zeros_like(rej)
-                pend_full[idx] = npend
-            rej = _alpha_rejected(scene, hit, rej, (rej & pend_full) if use_pending else None)
+            with annotate("alpha_retrace.pass"):
+                t_min = torch.where(rej, _retrace_tmin(hit.t), t_min)
+                idx = _nz(rej, "alpha_lanes")
+                nh, npend = closest_hit(bvh, scene.lights, o[idx], d[idx],
+                                        t_min[idx], cfg.t_max,
+                                        include_spheres=include_spheres,
+                                        active=torch.ones_like(idx, dtype=torch.bool),
+                                        sort_rays=sort_rays, return_pending=True,
+                                        policy=cfg.kernel)
+                hit = _hit_scatter(hit, idx, nh)
+                pend_full = None
+                if use_pending:
+                    pend_full = torch.zeros_like(rej)
+                    pend_full[idx] = npend
+                rej = _alpha_rejected(scene, hit, rej,
+                                      (rej & pend_full) if use_pending else None)
+        else:
+            _mark_cap(rej)
     return hit
 
 
@@ -205,18 +220,23 @@ def _shadow_blocked(scene, bvh, o, d, t_min0, t_limit, active, cfg: RenderConfig
                 for _ in range(cfg.max_alpha_skips):
                     if not _any_on_host(rej, "alpha_any"):
                         break
-                    t_min = torch.where(rej, _retrace_tmin(hit.t), t_min)
-                    idx = _nz(rej, "alpha_lanes")
-                    b_c, h_c = occlusion_hit(bvh, o[idx], d[idx], t_min[idx], t_limit[idx],
-                                             torch.ones_like(idx, dtype=torch.bool),
-                                             has_alpha, policy=cfg.kernel)
-                    b2 = torch.zeros_like(rej)
-                    b2[idx] = b_c
-                    hit = _hit_scatter(hit, idx, h_c)
-                    unc2 = rej & ~b2 & (hit.prim >= 0)
-                    rej2 = _alpha_rejected(scene, hit, unc2, unc2 if kernel_masks else None)
-                    blocked = blocked | (rej & b2) | (unc2 & ~rej2)
-                    rej = rej2
+                    with annotate("occl_recheck.pass"):
+                        t_min = torch.where(rej, _retrace_tmin(hit.t), t_min)
+                        idx = _nz(rej, "alpha_lanes")
+                        b_c, h_c = occlusion_hit(bvh, o[idx], d[idx], t_min[idx],
+                                                 t_limit[idx],
+                                                 torch.ones_like(idx, dtype=torch.bool),
+                                                 has_alpha, policy=cfg.kernel)
+                        b2 = torch.zeros_like(rej)
+                        b2[idx] = b_c
+                        hit = _hit_scatter(hit, idx, h_c)
+                        unc2 = rej & ~b2 & (hit.prim >= 0)
+                        rej2 = _alpha_rejected(scene, hit, unc2,
+                                               unc2 if kernel_masks else None)
+                        blocked = blocked | (rej & b2) | (unc2 & ~rej2)
+                        rej = rej2
+                else:
+                    _mark_cap(rej)
                 # re-trace cap reached: the rejected hit stays a surface (black)
                 blocked = blocked | rej
         return blocked

@@ -285,6 +285,40 @@ def _wrap_indices(arr: np.ndarray, size: int, mode: int) -> np.ndarray:
     return np.clip(arr, 0, size - 1)
 
 
+def _axis_runs(lo, hi, size: int, mode: int):
+    """The texels that the taps lo..hi (integer texel coordinates, hi >=
+    lo) reach on one axis of a `size`-texel texture under the wrap `mode`,
+    as two disjoint runs [a0, b0] and [a1, b1] (a run with a > b is
+    empty), and the number of taps, which a span of the whole axis or more
+    clips to `size`. A span shorter than the axis reaches one run, or two
+    where a REPEAT wraps past the edge: MIRRORED_REPEAT and CLAMP move by
+    at most one texel a tap, so they reach every texel between the
+    extremes, and MIRRORED_REPEAT's extremes are its ends or the edge
+    texel of a fold inside the span."""
+    span = hi - lo + 1
+    empty = np.ones_like(lo), np.zeros_like(lo)
+    if mode == WRAP_REPEAT:
+        a, b = np.remainder(lo, size), np.remainder(hi, size)
+        split = a > b
+        runs = (a, np.where(split, size - 1, b),
+                np.where(split, 0, empty[0]), np.where(split, b, empty[1]))
+    elif mode == WRAP_MIRRORED_REPEAT:
+        fa, fb = _wrap_indices(lo, size, mode), _wrap_indices(hi, size, mode)
+
+        def reaches(*rs):  # a tap lo..hi at one of the residues mod 2 * size
+            return np.any([np.remainder(r - lo, 2 * size) < span for r in rs], axis=0)
+
+        runs = (np.where(reaches(2 * size - 1, 0), 0, np.minimum(fa, fb)),
+                np.where(reaches(size - 1, size), size - 1, np.maximum(fa, fb))) + empty
+    else:
+        runs = (np.clip(lo, 0, size - 1), np.clip(hi, 0, size - 1)) + empty
+    whole = span >= size
+    a0, b0, a1, b1 = runs
+    return (np.where(whole, 0, a0), np.where(whole, size - 1, b0),
+            np.where(whole, empty[0], a1), np.where(whole, empty[1], b1),
+            np.minimum(span, size))
+
+
 def _alpha_cell_masks(tri_alpha, tri_uv, tri_mat, materials: Materials,
                       atlas: np.ndarray, tex_table: np.ndarray,
                       grid: int = 4, texel_cap: int = 1 << 16):
@@ -302,9 +336,14 @@ def _alpha_cell_masks(tri_alpha, tri_uv, tri_mat, materials: Materials,
     can NEAREST-sample, so a set bit cannot misclassify a texel. (The
     only theoretical gap is a float32 hit evaluated within ~1e-6 texels
     of a texel boundary rounding across it — sub-noise for a Monte-Carlo
-    renderer.) Cells whose bbox exceeds `texel_cap` texels stay 0 in both
-    masks (fall through to the exact re-trace test) instead of being
-    sampled sparsely.
+    renderer.) Cells whose bbox takes more than `texel_cap` taps stay 0
+    in both masks (fall through to the exact re-trace test).
+
+    Each box is answered in O(1): one summed-area table of "alpha below
+    the cutoff" per (texture, cutoff) pair counts the texels below the
+    cutoff in each run of the wrapped box (`_axis_runs`), and the cell is
+    transparent when that count is the box's area, opaque when it is 0.
+    Triangles and cells go through as arrays, 32,768 triangles at a time.
     """
     t = tri_alpha.shape[0]
     t_masks = np.zeros(t, np.int32)
@@ -312,62 +351,60 @@ def _alpha_cell_masks(tri_alpha, tri_uv, tri_mat, materials: Materials,
     idxs = np.nonzero(tri_alpha)[0]
     if idxs.size == 0:
         return t_masks, o_masks
-    atlas_a = atlas[..., 3].astype(np.float32) / 255.0
-    ah, aw = atlas_a.shape
-    tex_albedo = np.asarray(materials.tex_albedo)
-    cutoffs = np.asarray(materials.alpha_cutoff)
-    step = 1.0 / grid
+    ah, aw = atlas.shape[:2]
+    tex = np.asarray(materials.tex_albedo)[tri_mat[idxs]].astype(np.int64)
+    cut = np.asarray(materials.alpha_cutoff)[tri_mat[idxs]]
     full = np.int32((1 << (grid * grid)) - 1)
 
-    for ti in idxs:
-        tex = int(tex_albedo[tri_mat[ti]])
-        cutoff = float(cutoffs[tri_mat[ti]])
-        if tex == NO_TEXTURE or tex >= tex_table.shape[0]:
-            # no texture: alpha is the constant 1.0, so every cell is
-            # decided by the cutoff alone (matches _alpha_rejected's
-            # `where(tex == NO_TEXTURE, 1.0, a) < cutoff`)
-            if 1.0 < cutoff:
-                t_masks[ti] = full
-            else:
-                o_masks[ti] = full
-            continue
-        x0, y0, w, h, wrap_s, wrap_t = (int(v) for v in tex_table[tex][:6])
-        uv = tri_uv[ti].astype(np.float64)  # (3, 2)
-        tmask = 0
-        omask = 0
-        for ci in range(grid):
-            for cj in range(grid):
-                # corners of the full cell square in barycentric (u, v);
-                # the uv map is affine, so extrema are at corners
-                cu = np.array([ci * step, ci * step + step])[:, None]
-                cv = np.array([cj * step, cj * step + step])[None, :]
-                w0 = 1.0 - cu - cv
-                tu = (w0 * uv[0, 0] + cu * uv[1, 0] + cv * uv[2, 0]) * w
-                tv = (w0 * uv[0, 1] + cu * uv[1, 1] + cv * uv[2, 1]) * h
-                xlo = int(np.floor(tu.min()))
-                xhi = int(np.floor(tu.max()))
-                ylo = int(np.floor(tv.min()))
-                yhi = int(np.floor(tv.max()))
-                # spans >= texture size reach every texel on that axis
-                # regardless of wrap mode
-                if xhi - xlo + 1 >= w:
-                    xs = np.arange(w)
-                else:
-                    xs = _wrap_indices(np.arange(xlo, xhi + 1), w, wrap_s)
-                if yhi - ylo + 1 >= h:
-                    ys = np.arange(h)
-                else:
-                    ys = _wrap_indices(np.arange(ylo, yhi + 1), h, wrap_t)
-                if xs.size * ys.size > texel_cap:
-                    continue  # too large to verify exhaustively: stay 0
-                a = atlas_a[np.clip(ys + y0, 0, ah - 1)[:, None],
-                            np.clip(xs + x0, 0, aw - 1)[None, :]]
-                if (a < cutoff).all():
-                    tmask |= 1 << (ci * grid + cj)
-                elif (a >= cutoff).all():
-                    omask |= 1 << (ci * grid + cj)
-        t_masks[ti] = tmask
-        o_masks[ti] = omask
+    # no texture: alpha is the constant 1.0, so every cell is decided by
+    # the cutoff alone (matches _alpha_rejected's `where(tex ==
+    # NO_TEXTURE, 1.0, a) < cutoff`)
+    plain = (tex == NO_TEXTURE) | (tex >= tex_table.shape[0])
+    t_masks[idxs[plain]] = np.where(1.0 < cut[plain], full, 0)
+    o_masks[idxs[plain]] = np.where(1.0 < cut[plain], 0, full)
+
+    # the corners of each full cell square in barycentric (u, v), (cells, 4);
+    # the uv map is affine, so a box's extrema are at corners
+    step = 1.0 / grid
+    ci, cj = (x.reshape(-1, 1) for x in np.meshgrid(np.arange(grid), np.arange(grid),
+                                                    indexing="ij"))
+    cu = np.concatenate([ci * step, ci * step, ci * step + step, ci * step + step], 1)
+    cv = np.concatenate([cj * step, cj * step + step, cj * step, cj * step + step], 1)
+    w0 = 1.0 - cu - cv
+    bits = (np.int64(1) << (ci * grid + cj)[:, 0])
+
+    for tid in np.unique(tex[~plain]):
+        x0, y0, w, h, wrap_s, wrap_t = (int(v) for v in tex_table[tid][:6])
+        for c in np.unique(cut[~plain & (tex == tid)]):
+            sel = idxs[~plain & (tex == tid) & (cut == c)]
+            a = atlas[np.clip(np.arange(h) + y0, 0, ah - 1)[:, None],
+                      np.clip(np.arange(w) + x0, 0, aw - 1)[None, :], 3]
+            below = (a.astype(np.float32) / 255.0) < float(c)
+            sat = np.zeros((h + 1, w + 1), np.int64)
+            sat[1:, 1:] = below.cumsum(0).cumsum(1)
+            for s in range(0, sel.size, 1 << 15):
+                part = sel[s:s + (1 << 15)]
+                uv = tri_uv[part].astype(np.float64)[:, None, None]  # (n, 1, 1, 3, 2)
+                # (n, cells, 4), in the same float64 operations as one cell alone
+                tu = (w0 * uv[..., 0, 0] + cu * uv[..., 1, 0] + cv * uv[..., 2, 0]) * w
+                tv = (w0 * uv[..., 0, 1] + cu * uv[..., 1, 1] + cv * uv[..., 2, 1]) * h
+                xs = _axis_runs(np.floor(tu.min(-1)).astype(np.int64),
+                                np.floor(tu.max(-1)).astype(np.int64), w, wrap_s)
+                ys = _axis_runs(np.floor(tv.min(-1)).astype(np.int64),
+                                np.floor(tv.max(-1)).astype(np.int64), h, wrap_t)
+                count = np.zeros(tu.shape[:2], np.int64)
+                area = np.zeros(tu.shape[:2], np.int64)
+                for xa, xb in ((xs[0], xs[1]), (xs[2], xs[3])):
+                    for ya, yb in ((ys[0], ys[1]), (ys[2], ys[3])):
+                        on = (xa <= xb) & (ya <= yb)
+                        xa_, xb_ = np.where(on, xa, 0), np.where(on, xb + 1, 0)
+                        ya_, yb_ = np.where(on, ya, 0), np.where(on, yb + 1, 0)
+                        count += (sat[yb_, xb_] - sat[ya_, xb_] - sat[yb_, xa_]
+                                  + sat[ya_, xa_])
+                        area += (xb_ - xa_) * (yb_ - ya_)
+                checked = xs[4] * ys[4] <= texel_cap  # larger boxes stay 0
+                t_masks[part] = ((checked & (count == area)) * bits).sum(1)
+                o_masks[part] = ((checked & (count == 0)) * bits).sum(1)
     return t_masks, o_masks
 
 

@@ -11,7 +11,11 @@
   `jax.named_scope` names, and one `wave{k}` range per pass of its host
   wave loop, so a trace splits a sample's host and device time by
   integrator phase and by wave. The renderer adds `launch`,
-  `set_camera`, `accumulate` and `tonemap`; the wave loop `camera_rays`;
+  `set_camera`, `accumulate` and `tonemap`; the wave loop `camera_rays`,
+  and in the alpha loops one `alpha_retrace.pass` / `occl_recheck.pass`
+  a re-trace pass and an empty `alpha_cap` where a loop ends at its pass
+  cap with hits still rejected (tested only while a profiler runs, at
+  its own `sync.alpha_cap` site);
   the traversal `ray_sort` and `ray_unsort`; the mesh `shard_reduce`.
 - `host_sync(site)`: a `sync.<site>` range around each point where the
   host waits for the device (a `nonzero`, an `.item()`, a copy between
