@@ -9,7 +9,8 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
   build    nvcc the five CUDA sources (wide_traverse.cu, rope_traverse.cu,
            wide_octet.cu, wide_stepcost.cu, shade_wave.cu) and g++ the
            native host core, all at once; ptxas's registers, stack frame and
-           spills for each instantiation of K1/K2, K3/K4, K5 and K6 and for
+           spills for each instantiation of K1/K2 (with and without the
+           alpha re-trace), K3/K4, K5 and K6 and for
            the shading kernels S1 and S2
   scene    write the bench's Sponza-like scene (~215k triangles), load it,
            build the renderer at 1920x1080 on the card (its wide tables and
@@ -46,7 +47,15 @@ Runs, in order, with one JSON line per phase (`phase`, `seconds`, ...):
            shadow re-trace it launches; after the timed samples each is
            held against the plain version with the rule of `kernels`, and
            K1/K2 are timed on each (whole-frame waves: ns per ray and the
-           bound from the plain version's test counts)
+           bound from the plain version's test counts). On this scene,
+           with alpha-MASK foliage, every K1/K2 launch is an Alpha one (the
+           re-trace inside the walk): the warm-up keeps the inputs of its
+           first camera, bounce and shadow traces instead, and each is run
+           fused, through the integrator's host loop and through
+           wide.alpha_walk_plain: 0 rays may differ (t, prim, u, v, kind
+           bits; blocked), the fused counters must equal the loop's passes
+           and cap and the plain walk's, and the fused trace and the loop
+           are timed
   trace    utils.profiling.trace (torch.profiler, CPU and CUDA activities,
            a Chrome trace file) over one more sample of the same render:
            its wall seconds, the device's busy share (the union of the
@@ -343,7 +352,8 @@ def compare_exact(k, p):
             "flag_set": int((k[-1] != 0).sum()) if k[-1].dtype == torch.float32 else None}
 
 
-# the templates of K1/K2 and of K3/K4, each <Occlusion, Masks>
+# the templates of K1/K2 (<Occlusion, Masks, Alpha>) and of K3/K4
+# (<Occlusion, Masks>)
 WALKS = {"wide_walk": ("K1", "K2"), "rope_walk": ("K3", "K4")}
 # the kernels of csrc/shade_wave.cu, by their launch counters' names
 SHADE_KERNELS = {"shade_sample": "S1", "shade_mis": "S2"}
@@ -503,11 +513,21 @@ def zero_launch_counts():
 
 
 def launch_counts():
-    """The traversal kernels' launch counters (K1-K6)."""
+    """The traversal kernels' launch counters (K1-K6), one a launch: K1/K2
+    launches with the alpha re-trace count under "closest" / "occlusion"
+    (`alpha_launch_counts` gives them apart)."""
     from tpurt_torch.kernels import wide
     from tpurt_torch.kernels.experimental import rope
 
-    return {**wide.LAUNCHES, **rope.LAUNCHES}
+    return {**{k: v for k, v in wide.LAUNCHES.items() if not k.endswith("_alpha")},
+            **rope.LAUNCHES}
+
+
+def alpha_launch_counts():
+    """K1/K2 launches with the alpha re-trace (also in launch_counts())."""
+    from tpurt_torch.kernels import wide
+
+    return {k: wide.LAUNCHES[k] for k in ("closest_alpha", "occlusion_alpha")}
 
 
 def timed_pair(kern, plain):
@@ -520,6 +540,110 @@ def timed_pair(kern, plain):
             ms, _ = cuda_ms(fn)
             (p_ms if fn is plain else k_ms).append(ms)
     return median(k_ms), median(p_ms)
+
+
+def alpha_wave_case(r, kind, args):
+    """One alpha wave the render kept (the inputs of a `_trace` or
+    `_shadow_blocked` call) three ways on the same rays: the fused K1/K2
+    launch with the in-kernel alpha re-trace, the integrator's host loop
+    (`_alpha_in_kernel` off, its passes and cap counted) and
+    wide.alpha_walk_plain. Returns the rays that differ between the fused
+    launch and each of the others (a closest hit's t, prim, u, v and kind,
+    floats by their bits; a shadow ray's blocked), the fused counters
+    beside the loop's passes and cap, and the ms of each: the fused trace
+    (ray sort included) and the plain walk by CUDA events, the host loop
+    by the host clock over its syncs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from tpurt_torch.bvh.traverse import closest_hit, occlusion_hit
+    from tpurt_torch.integrator import wavefront as W
+    from tpurt_torch.kernels import wide
+
+    scene, cfg, bvh = r.device_scene, r.config, r.bvh
+
+    def alpha():
+        return dataclasses.replace(W._alpha_test(scene, cfg),
+                                   counters=torch.zeros(2, dtype=torch.int32, device=r.device))
+
+    if kind == "closest":
+        o, d, t_min0, active, spheres, sort_rays = args
+        fields = W.Hit._fields
+
+        def fused(at):
+            return closest_hit(bvh, scene.lights, o, d, t_min0, cfg.t_max,
+                               include_spheres=spheres, active=active, sort_rays=sort_rays,
+                               policy=cfg.kernel, alpha=at)[0]
+
+        def host():
+            return W._trace(scene, bvh, o, d, t_min0, active, spheres, cfg, True, sort_rays)
+
+        t_limit = torch.full_like(t_min0, float(np.float32(cfg.t_max)))
+        plain_kw = dict(occlusion=False, cell_masks=cfg.kernel.cell_masks_closest,
+                        spheres=spheres, t_max=cfg.t_max)
+    else:
+        o, d, t_min0, t_limit, active, ray_class = args
+        fields = ("blocked",)
+
+        def fused(at):
+            return occlusion_hit(bvh, o, d, t_min0, t_limit, active, True, ray_class=ray_class,
+                                 policy=cfg.kernel, alpha=at)[:1]
+
+        def host():
+            return (W._shadow_blocked(scene, bvh, o, d, t_min0, t_limit, active, cfg, True,
+                                      ray_class),)
+
+        plain_kw = dict(occlusion=True)
+    seen = {}
+    retrace_tmin, mark_cap, in_kernel = W._retrace_tmin, W._mark_cap, W._alpha_in_kernel
+
+    def count(t):
+        seen["passes"] += 1
+        return retrace_tmin(t)
+
+    def cap(rej):
+        seen["cap"] = bool(rej.any())
+
+    def loop():
+        seen.update(passes=0, cap=False)
+        W._retrace_tmin, W._mark_cap = count, cap
+        W._alpha_in_kernel = lambda bvh, o, octet: False
+        try:
+            return host()
+        finally:
+            W._retrace_tmin, W._mark_cap, W._alpha_in_kernel = retrace_tmin, mark_cap, in_kernel
+
+    at = alpha()
+    fused_ms, out_f = cuda_ms(lambda: fused(at))
+    counters = at.counters.tolist()
+    loop_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_l = loop()
+        torch.cuda.synchronize()
+        loop_ms.append((time.perf_counter() - t0) * 1e3)
+    pa = alpha()
+    plain_ms, w = cuda_ms(lambda: wide.alpha_walk_plain(
+        bvh, o, d, t_min0, wide._t_limit(t_limit, active), active, pa, **plain_kw))
+    out_p = (tuple(getattr(w, f) for f in fields) if kind == "closest"
+             else (w.flag > 0.0,))
+
+    def differ(a, b):
+        bits = (lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x)
+        bad = torch.zeros(a[0].shape[0], dtype=torch.bool, device=a[0].device)
+        for x, y in zip(a, b):
+            bad |= bits(x) != bits(y)
+        return int(bad.sum())
+
+    return {"rays": int(o.shape[0]), "active": int(active.sum()), "fields": list(fields),
+            "differ_loop": differ(tuple(out_f), tuple(out_l)),
+            "differ_plain": differ(tuple(out_f), out_p),
+            "counters": counters, "plain_counters": pa.counters.tolist(),
+            "loop_passes": seen["passes"], "loop_capped": int(seen["cap"]),
+            "fused_ms": timed_kernel(lambda: fused(alpha())), "fused_first_ms": fused_ms,
+            "loop_ms": median(loop_ms), "plain_ms": plain_ms}
 
 
 def cli_phase(info, scene, triangles, padded, work, platform="cuda", res="1920x1080",
@@ -1448,11 +1572,13 @@ def main():
         if errors:
             raise RuntimeError("; ".join(errors))
         info.update(times)
-        for key, source, walk in (("k1_k2_ptxas", "wide_traverse", "wide_walk"),
-                                  ("k3_k4_ptxas", "rope_traverse", "rope_walk")):
-            info[key] = template_resources(cudalib.kernel_resources(source), walk,
-                                           lambda a, ids=WALKS[walk]: f"{ids[a[0]]} masks={a[1]}")
-            if len(info[key]) != 4:
+        for key, source, walk, count in (("k1_k2_ptxas", "wide_traverse", "wide_walk", 8),
+                                         ("k3_k4_ptxas", "rope_traverse", "rope_walk", 4)):
+            info[key] = template_resources(
+                cudalib.kernel_resources(source), walk,
+                lambda a, ids=WALKS[walk]: f"{ids[a[0]]} masks={a[1]}"
+                                           + (" alpha" if a[2:] == (1,) else ""))
+            if len(info[key]) != count:
                 raise RuntimeError(f"ptxas reported {sorted(info[key])} for {walk}")
         info["k5_ptxas"] = template_resources(
             cudalib.kernel_resources("wide_octet"), "octet_walk",
@@ -1760,8 +1886,31 @@ def main():
         # during the warm-up sample, keep the first launch of each kind of
         # wave (inputs and kernel outputs) to hold against the plain version
         # below, outside the timed samples
-        captured = {}
+        # On this scene (alpha-MASK foliage) K1/K2 run with the alpha
+        # re-trace inside the walk, so its waves are kept at the
+        # integrator's trace calls instead: the first camera, bounce and
+        # shadow trace, held below against the host loop and the plain walk
+        from tpurt_torch.integrator import wavefront as W
+
+        captured, alpha_waves = {}, {}
         launch = wide.traverse_cuda
+        trace, shadow = W._trace, W._shadow_blocked
+
+        def keep_trace(scene, bvh, o, d, t_min0, active, spheres, cfg, has_alpha,
+                       sort_rays=True):
+            name = "bounce_wave" if "camera_wave" in alpha_waves else "camera_wave"
+            if has_alpha and name not in alpha_waves:
+                alpha_waves[name] = ("closest", (o.clone(), d.clone(), t_min0.clone(),
+                                                 active.clone(), spheres, sort_rays))
+            return trace(scene, bvh, o, d, t_min0, active, spheres, cfg, has_alpha, sort_rays)
+
+        def keep_shadow(scene, bvh, o, d, t_min0, t_limit, active, cfg, has_alpha,
+                        ray_class=None):
+            if has_alpha and "shadow_wave" not in alpha_waves:
+                alpha_waves["shadow_wave"] = ("shadow", (
+                    o.clone(), d.clone(), t_min0.clone(), t_limit.clone(), active.clone(),
+                    None if ray_class is None else ray_class.clone()))
+            return shadow(scene, bvh, o, d, t_min0, t_limit, active, cfg, has_alpha, ray_class)
 
         def capture(kbvh, o, d, t_min, t_limit, **kw):
             out = launch(kbvh, o, d, t_min, t_limit, **kw)
@@ -1779,6 +1928,7 @@ def main():
 
         zero_launch_counts()
         wide.traverse_cuda = capture
+        W._trace, W._shadow_blocked = keep_trace, keep_shadow
         try:
             t0 = time.perf_counter()
             r.render(1)
@@ -1786,6 +1936,7 @@ def main():
             warm = time.perf_counter() - t0
         finally:
             wide.traverse_cuda = launch
+            W._trace, W._shadow_blocked = trace, shadow
         r0 = r.rays.physical
         sample_physical = {}  # sample index -> Renderer.last_stats.physical
         t0 = time.perf_counter()
@@ -1810,6 +1961,12 @@ def main():
         if min(launches["closest"], launches["occlusion"]) <= 0 or launches["rope_closest"] \
                 or launches["rope_occlusion"]:
             raise RuntimeError(f"the wide render did not launch K1 and K2 alone: {launches}")
+        alpha_launches = alpha_launch_counts()
+        info["alpha_launches"] = alpha_launches
+        if r.has_alpha and (alpha_launches["closest_alpha"] != launches["closest"]
+                            or alpha_launches["occlusion_alpha"] != launches["occlusion"]):
+            raise RuntimeError(f"K1/K2 launched without the alpha re-trace: {launches}, "
+                               f"{alpha_launches}")
         if nan_px or not mean > 0.0:
             raise RuntimeError(f"bad image: {nan_px} NaN pixels, mean {mean}")
         kernel_rows[0]["launches"] = launches["closest"]
@@ -1833,15 +1990,30 @@ def main():
             b_ms, b_by, _, _ = bound(stats, n, kb.tri_rows.shape[1], kb.group_size)
             main_cases[name] = dict(row, ms=ms, ns_per_ray=ms * 1e6 / n, plain_ms=p_ms,
                                     bound_ms=b_ms, bound_by=b_by)
+        # each kept alpha wave: the fused launch against the host loop and
+        # the plain walk, bit for bit, its counters against the loop's
+        # passes and cap, and the times of the three
+        alpha_cases = {name: alpha_wave_case(r, kind, args)
+                       for name, (kind, args) in alpha_waves.items()}
+        del alpha_waves
         cudalib.check_kernel_errors(dev)
-        info.update(main_path_cases=main_cases,
+        info.update(main_path_cases=main_cases, alpha_wave_cases=alpha_cases,
                     main_path_check_s=round(time.perf_counter() - t0, 3))
         for want in ("camera_wave", "bounce_wave", "shadow_wave"):
-            if want not in main_cases:
-                raise RuntimeError(f"the render launched no {want}: {sorted(main_cases)}")
+            if want not in main_cases and want not in alpha_cases:
+                raise RuntimeError(f"the render launched no {want}: {sorted(main_cases)}, "
+                                   f"alpha waves {sorted(alpha_cases)}")
         bad = sum(v["mismatch"] for v in main_cases.values())
         if bad:
             raise RuntimeError(f"main-path K1/K2 against the plain version: {bad} rays differ")
+        for name, v in alpha_cases.items():
+            if v["differ_loop"] or v["differ_plain"] or \
+                    not v["counters"] == [v["loop_passes"], v["loop_capped"]] \
+                    == v["plain_counters"]:
+                raise RuntimeError(f"fused alpha {name} against the host loop and the plain "
+                                   f"walk: {v}")
+        if r.has_alpha and not sum(v["loop_passes"] for v in alpha_cases.values()):
+            raise RuntimeError(f"no alpha wave re-traced a ray: {alpha_cases}")
         for row, modes in ((kernel_rows[0], ("camera_wave", "bounce_wave", "alpha_retrace")),
                            (kernel_rows[1], ("shadow_wave", "shadow_retrace"))):
             waves = {m: main_cases[m] for m in modes if m in main_cases}
@@ -1851,6 +2023,9 @@ def main():
             row["main_path_waves"] = {m: {k: v[k] for k in ("rays", "ms", "ns_per_ray",
                                                           "bound_ms", "bound_by", "plain_ms")}
                                       for m, v in waves.items()}
+            row["alpha_waves"] = {m: {k: v[k] for k in ("rays", "counters", "fused_ms",
+                                                        "loop_ms", "plain_ms")}
+                                  for m, v in alpha_cases.items() if m in modes}
 
     with Phase("trace") as info:
         # one more sample of the same render under the profiler, through

@@ -23,6 +23,8 @@ path is not sorted, as in tpurt.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -161,7 +163,8 @@ def _unsort(order, cols):
 
 def closest_hit(kbvh, lights, o, d, t_min, t_max,
                 include_spheres=True, active=None, sort_rays=True,
-                return_pending=False, policy: KernelPolicy = DEFAULT_KERNEL_POLICY):
+                return_pending=False, policy: KernelPolicy = DEFAULT_KERNEL_POLICY,
+                alpha: Optional[wide.AlphaTest] = None):
     """Closest hit plus the analytic sphere lights: over the wide tables
     (K1, or K5 with `policy.octet_closest` walks), or by the rope walk
     over rope tables (`intersect_scene`, K3). With `return_pending`
@@ -169,7 +172,13 @@ def closest_hit(kbvh, lights, o, d, t_min, t_max,
     still need the host texture tap (None when the traversal ran no cell
     tests: `policy.cell_masks_closest` off, the wide tables without mask
     columns, and the rope walk; the caller then runs the full host alpha
-    test)."""
+    test). With `alpha` (the wide tables and K1 only) each ray re-traces
+    past the hits the alpha test rejects inside the walk
+    (wide.alpha_packets, cell masks as `policy.cell_masks_closest` says),
+    and the return is (Hit, alpha.counters)."""
+    if alpha is not None:
+        return _closest_alpha(kbvh, o, d, t_min, t_max, include_spheres, active, sort_rays,
+                              policy, alpha)
     if isinstance(kbvh, rope.KernelBVH):
         hit = intersect_scene(kbvh, None, lights, o, d, t_min, t_max,
                               include_spheres=include_spheres, active=active)
@@ -206,19 +215,62 @@ def closest_hit(kbvh, lights, o, d, t_min, t_max,
     return (hit, pending) if return_pending else hit
 
 
+def _closest_alpha(kbvh, o, d, t_min, t_max, include_spheres, active, sort_rays,
+                   policy: KernelPolicy, alpha: wide.AlphaTest):
+    """closest_hit with the alpha re-trace inside K1: (Hit, alpha.counters)."""
+    if not isinstance(kbvh, wide.WideKernelBVH) or policy.octet_closest:
+        raise ValueError("the alpha re-trace runs in K1 over the wide tables only")
+    n = o.shape[0]
+    if active is None:
+        active = torch.ones(n, dtype=torch.bool, device=o.device)
+    t_limit = torch.full((n,), float(np.float32(t_max)), dtype=torch.float32, device=o.device)
+    kw = dict(occlusion=False, cell_masks=policy.cell_masks_closest, spheres=include_spheres,
+              t_max=t_max)
+    if sort_rays and n > SORT_MIN_RAYS:
+        with annotate("ray_sort"):
+            key = _octant_morton_key(kbvh, o, d, active)
+            order, (op, dp, tp, ap) = _sort_rays(key, (o, d, t_min, active))
+        w = wide.alpha_packets(kbvh, op, dp, tp, t_limit, ap, alpha, **kw)
+        with annotate("ray_unsort"):
+            t, prim, u, v, kind = _unsort(order, w[:5])
+    else:
+        w = wide.alpha_packets(kbvh, o, d, t_min, t_limit, active, alpha, **kw)
+        t, prim, u, v, kind = w[:5]
+    return Hit(t=t, kind=kind, prim=prim, u=u, v=v), w.counters
+
+
 def occlusion_hit(kbvh, o, d, t_min, t_limit, active, scene_has_alpha: bool,
                   sort_rays=True, ray_class=None,
-                  policy: KernelPolicy = DEFAULT_KERNEL_POLICY):
+                  policy: KernelPolicy = DEFAULT_KERNEL_POLICY,
+                  alpha: Optional[wide.AlphaTest] = None):
     """Occlusion over the wide tables (K2, or K5 with
     `policy.octet_occlusion` walks). Returns (blocked, Hit of the closest
     uncertain hit, kind TRIANGLE where one exists). Like tpurt's, it takes
-    the wide tables only."""
+    the wide tables only. With `alpha` (K2 only) each ray re-traces past
+    the uncertain hits the alpha test rejects inside the walk, `blocked`
+    is final (wide.alpha_packets) and the return is (blocked, Hit,
+    alpha.counters)."""
     if not isinstance(kbvh, wide.WideKernelBVH):
         raise TypeError("occlusion_hit needs the wide tables; the rope path traces "
                         "shadow rays with closest_hit")
     n = o.shape[0]
     if active is None:
         active = torch.ones(n, dtype=torch.bool, device=o.device)
+    if alpha is not None:
+        if policy.octet_occlusion:
+            raise ValueError("the alpha re-trace runs in K2, not in the multi-walk kernel")
+        if sort_rays and n > SORT_MIN_RAYS:
+            with annotate("ray_sort"):
+                key = _octant_morton_key(kbvh, o, d, active, ray_class)
+                order, (op, dp, tp, tl, ap) = _sort_rays(key, (o, d, t_min, t_limit, active))
+            w = wide.alpha_packets(kbvh, op, dp, tp, tl, ap, alpha, occlusion=True)
+            with annotate("ray_unsort"):
+                flag, t, prim, u, v, kind = _unsort(order, (w.flag, w.t, w.prim, w.u, w.v,
+                                                            w.kind))
+        else:
+            w = wide.alpha_packets(kbvh, o, d, t_min, t_limit, active, alpha, occlusion=True)
+            flag, t, prim, u, v, kind = w.flag, w.t, w.prim, w.u, w.v, w.kind
+        return flag > 0.0, Hit(t=t, kind=kind, prim=prim, u=u, v=v), w.counters
     if sort_rays and n > SORT_MIN_RAYS:
         with annotate("ray_sort"):
             key = _octant_morton_key(kbvh, o, d, active, ray_class)

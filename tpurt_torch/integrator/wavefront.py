@@ -14,11 +14,17 @@ sync, as is each `nonzero`; every such wait opens a `sync.<site>`
 range, utils/profiling.host_sync). tpurt's fixed-capacity compaction
 (`retrace_frac`, `shade_frac`, `compact_ladder`) existed to keep XLA
 shapes static; the port compacts with dynamic sizes instead: a wave
-traces only the rays that are live, shades only the rays that hit a
-triangle, and an alpha re-trace or texture recheck runs only on the
-rays that need it. Every step is per-lane, and a lane that is left out
-is one whose result tpurt masks away, so the rendered values are
-unchanged.
+traces only the rays that are live and shades only the rays that hit a
+triangle. Every step is per-lane, and a lane that is left out is one
+whose result tpurt masks away, so the rendered values are unchanged.
+
+The alpha loops. Over the wide tables on the card, each ray re-traces
+past its own rejected hits inside K1/K2 (the kernels' alpha re-trace,
+wide.alpha_packets): one launch a trace, with no host pass. Elsewhere
+(CPU tensors, the rope walk, the multi-walk kernel) `_trace` and
+`_shadow_blocked` run the host loop, which is the kernels' reference: a
+pass tests the committed hits (texture taps only on the rays whose cell
+is undecided) and re-traces only the rejected rays.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from tpurt_torch.kernels.intersect import (
 from tpurt_torch.kernels.lights import pdf_sphere, sample_hemisphere_uniform, sample_sphere
 from tpurt_torch.kernels.shade import WaveShade
 from tpurt_torch.kernels.texture import sample_texture_alpha_quad, sample_texture_quad
+from tpurt_torch.kernels import wide
 from tpurt_torch.kernels.wide import WideKernelBVH
 from tpurt_torch.scene.device import DeviceScene
 from tpurt_torch.scene.types import NO_TEXTURE
@@ -150,16 +157,58 @@ def _mark_cap(rej):
             pass
 
 
-def _retrace_tmin(t):
-    """t_min just past a rejected hit: t * (1 + 1e-6) + 1e-5."""
-    return t * float(np.float32(1.0 + 1e-6)) + float(np.float32(1e-5))
+_retrace_tmin = wide.retrace_tmin
+
+
+def _alpha_in_kernel(bvh, o, octet: int) -> bool:
+    """Whether the alpha loop runs inside K1/K2 (the wide tables on the
+    card, without the multi-walk kernel) rather than on the host."""
+    return o.is_cuda and isinstance(bvh, WideKernelBVH) and not octet
+
+
+def _alpha_test(scene: DeviceScene, cfg: RenderConfig) -> wide.AlphaTest:
+    """The kernels' alpha tables, with counters to read only while a
+    profiler runs."""
+    counters = (torch.zeros(2, dtype=torch.int32, device=scene.tri_pos.device)
+                if torch.autograd._profiler_enabled() else None)
+    return wide.AlphaTest(tri_alpha=scene.tri_alpha, tri_alpha_row=scene.tri_alpha_row,
+                          tex_table=scene.tex_table, atlas_quad=scene.atlas_quad,
+                          lights=scene.lights, max_skips=cfg.max_alpha_skips,
+                          counters=counters)
+
+
+def _mark_passes(loop: str, counters) -> None:
+    """After an alpha loop ran inside a kernel, the ranges the host loop
+    opens: `loop` holding one `<loop>.pass` range a pass (the most
+    re-traces a ray took) and an empty `alpha_cap` where a ray ended at
+    the cap still rejected. The counters are read at their own
+    `sync.alpha_passes` site; without counters (no profiler ran at the
+    launch) nothing is read or opened."""
+    if counters is None:
+        return
+    with host_sync("alpha_passes"):
+        passes, capped = counters.tolist()
+    with annotate(loop):
+        for _ in range(passes):
+            with annotate(loop + ".pass"):
+                pass
+        if capped:
+            with annotate("alpha_cap"):
+                pass
 
 
 def _trace(scene, bvh, o, d, t_min0, active, include_spheres, cfg: RenderConfig,
            has_alpha: bool, sort_rays: bool = True) -> Hit:
     """Closest hit with the alpha re-trace loop (the reference's any-hit):
     a rejected hit is re-traced from just past it, up to
-    cfg.max_alpha_skips times."""
+    cfg.max_alpha_skips times, inside K1 where _alpha_in_kernel says so."""
+    if has_alpha and _alpha_in_kernel(bvh, o, cfg.kernel.octet_closest):
+        hit, counters = closest_hit(bvh, scene.lights, o, d, t_min0, cfg.t_max,
+                                    include_spheres=include_spheres, active=active,
+                                    sort_rays=sort_rays, policy=cfg.kernel,
+                                    alpha=_alpha_test(scene, cfg))
+        _mark_passes("alpha_retrace", counters)
+        return hit
     hit, pending = closest_hit(bvh, scene.lights, o, d, t_min0,
                                cfg.t_max, include_spheres=include_spheres,
                                active=active, sort_rays=sort_rays,
@@ -199,13 +248,20 @@ def _shadow_blocked(scene, bvh, o, d, t_min0, t_limit, active, cfg: RenderConfig
     """The shadow trace of _trace_shadow between its sphere test and its
     payload: True where a surface blocks the ray before `t_limit`. Over
     the wide tables an occlusion query (K2) with the exact alpha recheck
-    and occlusion re-trace past texture-rejected hits; on the rope path a
-    full closest-hit trace (K3) with the alpha re-trace, as in tpurt."""
+    and occlusion re-trace past texture-rejected hits (inside K2 where
+    _alpha_in_kernel says so); on the rope path a full closest-hit trace
+    (K3) with the alpha re-trace, as in tpurt."""
     n = o.shape[0]
     dev = o.device
     if isinstance(bvh, WideKernelBVH):
         if ray_class is None:
             ray_class = (torch.arange(n, device=dev) >= (n // 2)).to(torch.int32)
+        if has_alpha and _alpha_in_kernel(bvh, o, cfg.kernel.octet_occlusion):
+            blocked, _, counters = occlusion_hit(bvh, o, d, t_min0, t_limit, active, True,
+                                                 ray_class=ray_class, policy=cfg.kernel,
+                                                 alpha=_alpha_test(scene, cfg))
+            _mark_passes("occl_recheck", counters)
+            return blocked
         blocked, hit = occlusion_hit(bvh, o, d, t_min0, t_limit, active, has_alpha,
                                      ray_class=ray_class, policy=cfg.kernel)
         if has_alpha:

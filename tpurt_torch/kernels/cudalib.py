@@ -164,6 +164,8 @@ def check(x: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
 
 def argtypes(spec: str) -> list:
     """ctypes argument types from a compact spec: 'p' a pointer or the
-    stream (void*, so a 64-bit value is not cut), 'i' a C int."""
-    return [ctypes.c_void_p if c == "p" else ctypes.c_int for c in spec]
+    stream (void*, so a 64-bit value is not cut), 'i' a C int, 'f' a C
+    float."""
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    return [kinds[c] for c in spec]
 

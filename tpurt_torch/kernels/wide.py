@@ -20,9 +20,13 @@ Three parts:
    each with one stack over the union of its rays' hits) and
    `stepcost_plain` (K6: the per-ray walk with one stack entry per hit
    child, as K1 walked before its card tables, for a fixed number of
-   steps with phases switched off).
+   steps with phases switched off) and `alpha_walk_plain` (K1/K2 with the
+   alpha re-trace: every ray walks again past its own rejected hits, at
+   most `max_skips` times, full width and with no host read; the
+   integrator's host loop is its reference).
 3. The kernel wrappers `traverse_packets` / `occlusion_packets` (with
-   `octet=N` the multi-walk kernel) and `stepcost_packets`. A CPU tensor
+   `octet=N` the multi-walk kernel), `alpha_packets` (K1/K2's Alpha
+   instantiations) and `stepcost_packets`. A CPU tensor
    goes to the plain version; a CUDA tensor goes to the hand-written
    kernel, built with nvcc on first use and bound through ctypes:
    csrc/wide_traverse.cu (K1 closest hit, K2 occlusion),
@@ -49,14 +53,23 @@ mask columns, K2's blocked set.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from tpurt_torch.bvh.lbvh import TriBVH
 from tpurt_torch.kernels import cudalib
-from tpurt_torch.kernels.intersect import mask_cell, ray_triangle_rows
+from tpurt_torch.kernels.intersect import (
+    KIND_MISS,
+    KIND_SPHERE,
+    KIND_TRIANGLE,
+    intersect_spheres,
+    mask_cell,
+    ray_triangle_rows,
+)
+from tpurt_torch.kernels.texture import sample_texture_alpha_quad
+from tpurt_torch.scene.types import NO_TEXTURE
 from tpurt_torch.utils.profiling import host_sync
 
 ARITY = 16
@@ -74,9 +87,11 @@ _BIG = 3.0e38
 PACKET = 1024
 OCTET_WALKS = (2, 4, 8)
 
-# launches of each CUDA kernel per mode; plain CPU traversals do not count
-LAUNCHES = {"closest": 0, "occlusion": 0, "octet_closest": 0, "octet_occlusion": 0,
-            "stepcost": 0}
+# launches of each CUDA kernel per mode; plain CPU traversals do not count.
+# "closest" and "occlusion" count every K1 and K2 launch, "closest_alpha"
+# and "occlusion_alpha" those of them with the alpha re-trace
+LAUNCHES = {"closest": 0, "occlusion": 0, "closest_alpha": 0, "occlusion_alpha": 0,
+            "octet_closest": 0, "octet_occlusion": 0, "stepcost": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +147,42 @@ class WideKernelBVH:
             with host_sync("root_bounds"):
                 out.append(x.to(dev))
         return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class AlphaTest:
+    """What the alpha re-trace of K1/K2 reads: DeviceScene's alpha tables,
+    its lights (K1's sphere test) and `max_skips`, the re-traces a ray may
+    take. `counters`, when given, is an int32 (2,) tensor of zeros that
+    the launch fills with [the most re-traces a ray took, 1 if a ray ended
+    at the cap still rejected]."""
+
+    tri_alpha: torch.Tensor      # (T,) bool
+    tri_alpha_row: torch.Tensor  # (T, 11) f32
+    tex_table: torch.Tensor      # (NT, 10) i32
+    atlas_quad: torch.Tensor     # (QH, QW, 16) uint8
+    lights: torch.Tensor         # (L, 8) f32
+    max_skips: int
+    counters: Optional[torch.Tensor] = None
+
+
+class AlphaWalk(NamedTuple):
+    """K1/K2 with the alpha re-trace, ray by ray. `flag` is K1's pending
+    (cell masks) or K2's blocked; `counters` as AlphaTest's, or None where
+    none was given."""
+
+    t: torch.Tensor      # (N,) f32: K1 t_max on a miss
+    prim: torch.Tensor   # (N,) i32: triangle id, K1 a light id on a sphere hit
+    u: torch.Tensor      # (N,) f32: the last walk's triangle (0 without one)
+    v: torch.Tensor      # (N,) f32
+    kind: torch.Tensor   # (N,) i32: KIND_* of kernels/intersect.py
+    flag: torch.Tensor   # (N,) f32
+    counters: Optional[torch.Tensor]
+
+
+def retrace_tmin(t):
+    """t_min just past a rejected hit: t * (1 + 1e-6) + 1e-5."""
+    return t * float(np.float32(1.0 + 1e-6)) + float(np.float32(1e-5))
 
 
 # ---- table building (host numpy) -----------------------------------------
@@ -823,11 +874,103 @@ def stepcost_plain(node_rows, tri_rows, o, d, t_min, t_limit, *, group: int, ari
     return t_best, prim, acc
 
 
+def alpha_rejected_plain(alpha: AlphaTest, prim, u, v, tested):
+    """The integrator's exact alpha test (wavefront._alpha_eval) on every
+    ray at once: True where a tested hit is rejected, by its decided cell
+    of the fused alpha row or else by the NEAREST tap below the cutoff
+    (NO_TEXTURE reads as opaque)."""
+    row = alpha.tri_alpha_row[torch.clamp(prim, 0, alpha.tri_alpha_row.shape[0] - 1).long()]
+    cell = mask_cell(u, v)
+    tbit = (row[:, 9].to(torch.int32) >> cell) & 1
+    obit = (row[:, 10].to(torch.int32) >> cell) & 1
+    w0 = 1.0 - u - v
+    uv_u = w0 * row[:, 3] + u * row[:, 5] + v * row[:, 7]
+    uv_v = w0 * row[:, 4] + u * row[:, 6] + v * row[:, 8]
+    tex = row[:, 2].to(torch.int32)
+    a = sample_texture_alpha_quad(alpha.atlas_quad, alpha.tex_table, tex, uv_u, uv_v)
+    a = torch.where(tex == NO_TEXTURE, torch.ones_like(a), a)
+    return tested & ((tbit == 1) | ((obit == 0) & (a < row[:, 1])))
+
+
+def alpha_walk_plain(kbvh: WideKernelBVH, o, d, t_min, t_limit, active, alpha: AlphaTest, *,
+                     occlusion: bool, cell_masks: bool = False, spheres: bool = False,
+                     t_max: float = 0.0) -> AlphaWalk:
+    """The alpha re-trace of K1/K2's Alpha instantiations in plain PyTorch,
+    full width and masked: every ray still walking takes traverse_plain's
+    walk together, the rest are inactive in it, and the loop runs
+    alpha.max_skips + 1 walks with no host read. Its reference is the
+    integrator's host loop (wavefront._trace, wavefront._shadow_blocked),
+    which it equals ray by ray: a rejected hit is walked past from
+    t * (1 + 1e-6) + 1e-5 at most max_skips times, after which it stands
+    (K1) or blocks (K2); K1 applies closest_hit's miss and sphere lights
+    (`spheres`, at each walk's t_min) after every walk. t_limit holds
+    inactive rays at -3e38, as traverse_plain takes it; `active` gates
+    K1's sphere test. Returns an AlphaWalk; alpha.counters, when given,
+    take the kernel's maxima."""
+    dev = o.device
+    n = o.shape[0]
+    masks = kbvh.use_masks and (occlusion or cell_masks)
+    nl = alpha.lights.shape[0] if spheres and not occlusion else 0
+    t_cap = float(np.float32(t_max))
+    t = torch.zeros(n, dtype=torch.float32, device=dev)
+    prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    u, v, flag = torch.zeros_like(t), torch.zeros_like(t), torch.zeros_like(t)
+    kind = torch.zeros(n, dtype=torch.int32, device=dev)
+    retraces = torch.zeros(n, dtype=torch.int32, device=dev)
+    t_cur = t_min.clone()
+    todo = torch.ones(n, dtype=torch.bool, device=dev)  # rays still walking
+    for k in range(alpha.max_skips + 1):
+        tk, pk, fk = traverse_plain(kbvh.node_rows, kbvh.tri_rows, o, d, t_cur,
+                                    torch.where(todo, t_limit, torch.full_like(t_limit, -_BIG)),
+                                    group=kbvh.group_size, arity=kbvh.arity,
+                                    occlusion=occlusion, all_definite=False,
+                                    cell_masks=cell_masks)
+        uk, vk = _uv_from_prim(kbvh, o, d, pk)
+        kk = torch.where(pk >= 0, KIND_TRIANGLE, KIND_MISS).to(torch.int32)
+        if occlusion:
+            blocker = fk != 0.0
+            unc = ~blocker & (pk >= 0)
+            tested = unc if masks else unc & alpha.tri_alpha[
+                torch.clamp(pk, 0, alpha.tri_alpha.shape[0] - 1).long()]
+            rej = alpha_rejected_plain(alpha, pk, uk, vk, tested)
+            fk = (blocker | (unc & ~rej)).to(torch.float32)
+        else:
+            tk = torch.where(pk >= 0, tk, torch.full_like(tk, t_cap))
+            if nl > 0:
+                s_hit, s_t, s_id = intersect_spheres(o, d, alpha.lights, t_cur, t_max)
+                s_hit = s_hit & active & (s_t < tk)
+                tk = torch.where(s_hit, s_t, tk)
+                pk = torch.where(s_hit, s_id, pk)
+                kk = torch.where(s_hit, torch.full_like(kk, KIND_SPHERE), kk)
+                fk = torch.where(s_hit, torch.zeros_like(fk), fk)
+            tested = (fk > 0.5) if masks else (kk == KIND_TRIANGLE) & alpha.tri_alpha[
+                torch.clamp(pk, 0, alpha.tri_alpha.shape[0] - 1).long()]
+            rej = alpha_rejected_plain(alpha, pk, uk, vk, tested)
+        t, prim, u, v, kind, flag = (torch.where(todo, a, b) for a, b in
+                                     ((tk, t), (pk, prim), (uk, u), (vk, v), (kk, kind),
+                                      (fk, flag)))
+        todo = todo & rej
+        if k < alpha.max_skips:
+            retraces = torch.where(todo, torch.full_like(retraces, k + 1), retraces)
+            t_cur = torch.where(todo, retrace_tmin(tk), t_cur)
+    if occlusion:  # the cap: a rejected hit blocks
+        flag = torch.where(todo, torch.ones_like(flag), flag)
+    counters = alpha.counters
+    if counters is not None:  # the kernel's atomicMax and atomicOr
+        most = retraces.max() if n else retraces.sum()
+        counters.copy_(torch.maximum(counters, torch.stack([most, todo.any().to(torch.int32)])))
+    return AlphaWalk(t=t, prim=prim, u=u, v=v, kind=kind, flag=flag, counters=counters)
+
+
 # ---- the CUDA kernel: build, bind, launch ----------------------------------
 
 _LIB = "wide_traverse"
-_ARGTYPES = {name: cudalib.argtypes("piipipppppppiiiipp")
-             for name in ("tpurt_wide_closest", "tpurt_wide_occlusion")}
+_WALK_ARGS = "piipipppppppiiiipp"
+# the Alpha entry points: the walk's arguments, then csrc's AlphaArgs
+_ARGTYPES = {**{name: cudalib.argtypes(_WALK_ARGS)
+                for name in ("tpurt_wide_closest", "tpurt_wide_occlusion")},
+             **{name: cudalib.argtypes(_WALK_ARGS + "p" * 10 + "i" * 6 + "f")
+                for name in ("tpurt_wide_closest_alpha", "tpurt_wide_occlusion_alpha")}}
 
 
 def _check_launch(kbvh: WideKernelBVH, o, d, t_min, t_limit, plain_stack: bool = True):
@@ -909,6 +1052,70 @@ def traverse_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, occlusion: bool,
     cudalib.launch_check(rc, "wide traversal")
     LAUNCHES["occlusion" if occlusion else "closest"] += 1
     return t, prim, flag
+
+
+def _check_alpha(alpha: AlphaTest, active, n, dev) -> None:
+    """Raise unless the alpha tables, `active` and the counters are what the
+    Alpha kernels read, on the rays' device."""
+    n_tri = alpha.tri_alpha_row.shape[0]
+    qh, qw = alpha.atlas_quad.shape[:2]
+    for name, x, shape, dtype in (
+            ("tri_alpha", alpha.tri_alpha, (n_tri,), torch.bool),
+            ("tri_alpha_row", alpha.tri_alpha_row, (n_tri, 11), torch.float32),
+            ("tex_table", alpha.tex_table, (alpha.tex_table.shape[0], 10), torch.int32),
+            ("atlas_quad", alpha.atlas_quad, (qh, qw, 16), torch.uint8),
+            ("lights", alpha.lights, (alpha.lights.shape[0], 8), torch.float32),
+            ("active", active, (n,), torch.bool)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, rays are on {dev}")
+        cudalib.check(x, name, shape, dtype)
+    if alpha.counters is not None:
+        if alpha.counters.device != dev:
+            raise ValueError(f"counters are on {alpha.counters.device}, rays are on {dev}")
+        cudalib.check(alpha.counters, "counters", (2,), torch.int32)
+    if n_tri == 0 or alpha.max_skips < 0:
+        raise ValueError(f"alpha test over {n_tri} triangles, max_skips {alpha.max_skips}")
+
+
+def alpha_walk_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, active, alpha: AlphaTest, *,
+                    occlusion: bool, cell_masks: bool = False, spheres: bool = False,
+                    t_max: float = 0.0) -> AlphaWalk:
+    """Launch K1 (closest) or K2 (occlusion) with the alpha re-trace (the
+    Alpha instantiations of csrc/wide_traverse.cu) on the current stream.
+    Returns the AlphaWalk of alpha_walk_plain, bit for bit; the counters
+    are filled when the launch ends. Does not wait for the card."""
+    dev = o.device
+    n = o.shape[0]
+    _check_launch(kbvh, o, d, t_min, t_limit)
+    card = _check_card(kbvh, dev)
+    _check_alpha(alpha, active, n, dev)
+    t, prim, flag = _outputs(n, dev)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    kind = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return AlphaWalk(t, prim, u, v, kind, flag, alpha.counters)
+    lib = cudalib.load(_LIB, _ARGTYPES)
+    err = cudalib.error_word(dev)
+    fn = lib.tpurt_wide_occlusion_alpha if occlusion else lib.tpurt_wide_closest_alpha
+    apply_masks = kbvh.use_masks and (occlusion or cell_masks)
+    nl = alpha.lights.shape[0] if spheres and not occlusion else 0
+    qh, qw = alpha.atlas_quad.shape[:2]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(card.nodes.data_ptr(), kbvh.node_rows.shape[1], kbvh.arity,
+            card.leaves.data_ptr(), kbvh.group_size,
+            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
+            t.data_ptr(), prim.data_ptr(), flag.data_ptr(), n,
+            int(apply_masks), 0, kbvh.depth_bound, err.data_ptr(), stream,
+            alpha.tri_alpha.data_ptr(), alpha.tri_alpha_row.data_ptr(),
+            alpha.tex_table.data_ptr(), alpha.atlas_quad.data_ptr(), alpha.lights.data_ptr(),
+            active.data_ptr(), u.data_ptr(), v.data_ptr(), kind.data_ptr(),
+            None if alpha.counters is None else alpha.counters.data_ptr(),
+            alpha.tri_alpha_row.shape[0], alpha.tex_table.shape[0], qh, qw, nl,
+            alpha.max_skips, float(np.float32(t_max)))
+    cudalib.launch_check(rc, "wide traversal with alpha re-trace")
+    LAUNCHES["occlusion" if occlusion else "closest"] += 1
+    LAUNCHES["occlusion_alpha" if occlusion else "closest_alpha"] += 1
+    return AlphaWalk(t, prim, u, v, kind, flag, alpha.counters)
 
 
 _OCTET_LIB = "wide_octet"
@@ -1012,6 +1219,26 @@ def traverse_packets(kbvh: WideKernelBVH, o, d, t_min, t_max, active,
     if not want_pending:
         return t, prim, u, v
     return t, prim, u, v, (flag > 0.5) if cell_masks else None
+
+
+def alpha_packets(kbvh: WideKernelBVH, o, d, t_min, t_limit, active, alpha: AlphaTest, *,
+                  occlusion: bool, cell_masks: bool = False, spheres: bool = False,
+                  t_max: float = 0.0) -> AlphaWalk:
+    """K1 (closest hit over (t_min, t_limit), the miss at t_max, the sphere
+    lights with `spheres`) or K2 (occlusion) with the alpha re-trace of
+    rejected hits: alpha_walk_cuda on CUDA tensors, alpha_walk_plain on
+    CPU tensors, anything else raises. Inactive rays miss."""
+    o = o.contiguous().to(torch.float32)
+    d = d.contiguous().to(torch.float32)
+    t_min = t_min.contiguous().to(torch.float32)
+    t_limit = _t_limit(t_limit.contiguous().to(torch.float32), active).contiguous()
+    active = active.contiguous()
+    kw = dict(occlusion=occlusion, cell_masks=cell_masks, spheres=spheres, t_max=t_max)
+    if o.is_cuda:
+        return alpha_walk_cuda(kbvh, o, d, t_min, t_limit, active, alpha, **kw)
+    if o.device.type == "cpu":
+        return alpha_walk_plain(kbvh, o, d, t_min, t_limit, active, alpha, **kw)
+    raise ValueError(f"no traversal for device {o.device}")
 
 
 def occlusion_packets(kbvh: WideKernelBVH, o, d, t_min, t_limit, active,
