@@ -12,13 +12,16 @@ rope path resolves shadow rays with a full closest-hit trace in the
 integrator. `intersect_brute_force` is the
 test oracle.
 
-On the wide path, above 2048 rays the rays are sorted by an (octant,
-origin Morton, direction Morton) key before the traversal and the
-results are put back in the caller's order, as tpurt does; tpurt's
-variadic `lax.sort` becomes a stable `torch.sort` plus gathers (the
-`ray_sort` range: key, sort, gathers; `ray_unsort`: the scatters back).
-The sort changes which rays share a warp, never a ray's result. The rope
-path is not sorted, as in tpurt.
+On the wide path, above SORT_MIN_RAYS (2048) rays the rays are sorted
+by an (octant, origin Morton, direction Morton) key before the
+traversal and the results are put back in the caller's order, as tpurt
+does; tpurt's variadic `lax.sort` becomes a stable `torch.sort` plus
+gathers (the `ray_sort` range: key, sort, gathers; `ray_unsort`: the
+scatters back). One helper, `_sorted_walk`, holds the sort around every
+wide trace: closest hit and occlusion, with and without the alpha
+re-trace. The sort changes which rays share a warp, never a ray's
+result. The rope path is not sorted, as in tpurt. The walks themselves,
+their routing by device and their launches are kernels/wide.py's.
 """
 
 from __future__ import annotations
@@ -161,6 +164,22 @@ def _unsort(order, cols):
     return tuple(out)
 
 
+def _sorted_walk(kbvh, sort_rays, cols, walk, ray_class=None):
+    """`walk(*cols)` over the ray columns `cols` = (o, d, ..., active),
+    with the rays sorted first where `sort_rays` and there are more than
+    SORT_MIN_RAYS of them (the `ray_sort` range: key, sort, gathers). The
+    walk returns a tuple of (N,) tensors; they come back in the caller's
+    order (the `ray_unsort` range: the scatters back)."""
+    if not (sort_rays and cols[0].shape[0] > SORT_MIN_RAYS):
+        return walk(*cols)
+    with annotate("ray_sort"):
+        key = _octant_morton_key(kbvh, cols[0], cols[1], cols[-1], ray_class)
+        order, cols = _sort_rays(key, cols)
+    out = walk(*cols)
+    with annotate("ray_unsort"):
+        return _unsort(order, out)
+
+
 def closest_hit(kbvh, lights, o, d, t_min, t_max,
                 include_spheres=True, active=None, sort_rays=True,
                 return_pending=False, policy: KernelPolicy = DEFAULT_KERNEL_POLICY,
@@ -176,9 +195,9 @@ def closest_hit(kbvh, lights, o, d, t_min, t_max,
     past the hits the alpha test rejects inside the walk
     (wide.alpha_packets, cell masks as `policy.cell_masks_closest` says),
     and the return is (Hit, alpha.counters)."""
-    if alpha is not None:
-        return _closest_alpha(kbvh, o, d, t_min, t_max, include_spheres, active, sort_rays,
-                              policy, alpha)
+    if alpha is not None and (not isinstance(kbvh, wide.WideKernelBVH)
+                              or policy.octet_closest):
+        raise ValueError("the alpha re-trace runs in K1 over the wide tables only")
     if isinstance(kbvh, rope.KernelBVH):
         hit = intersect_scene(kbvh, None, lights, o, d, t_min, t_max,
                               include_spheres=include_spheres, active=active)
@@ -188,22 +207,26 @@ def closest_hit(kbvh, lights, o, d, t_min, t_max,
     n = o.shape[0]
     if active is None:
         active = torch.ones(n, dtype=torch.bool, device=o.device)
+    cols = (o, d, t_min, active)
+    if alpha is not None:
+        t_limit = torch.full((n,), float(np.float32(t_max)), dtype=torch.float32,
+                             device=o.device)
+        kw = dict(occlusion=False, cell_masks=policy.cell_masks_closest,
+                  spheres=include_spheres, t_max=t_max)
+        t, prim, u, v, kind = _sorted_walk(
+            kbvh, sort_rays, cols,
+            lambda o, d, t_min, active: wide.alpha_packets(kbvh, o, d, t_min, t_limit, active,
+                                                           alpha, **kw)[:5])
+        return Hit(t=t, kind=kind, prim=prim, u=u, v=v), alpha.counters
     cell_masks = return_pending and policy.cell_masks_closest
-    kw = dict(cell_masks=cell_masks, octet=policy.octet_closest)
-    if sort_rays and n > SORT_MIN_RAYS:
-        with annotate("ray_sort"):
-            key = _octant_morton_key(kbvh, o, d, active)
-            order, (op, dp, tp, ap) = _sort_rays(key, (o, d, t_min, active))
-        out = wide.traverse_packets(kbvh, op, dp, tp, t_max, ap, **kw)
-        with annotate("ray_unsort"):
-            t, prim, u, v = _unsort(order, out[:4])
-            pending = out[4] if cell_masks else None
-            if pending is not None:
-                (pending,) = _unsort(order, (pending,))
-    else:
-        out = wide.traverse_packets(kbvh, o, d, t_min, t_max, active, **kw)
-        t, prim, u, v = out[:4]
-        pending = out[4] if cell_masks else None
+
+    def walk(o, d, t_min, active):
+        out = wide.traverse_packets(kbvh, o, d, t_min, t_max, active, cell_masks=cell_masks,
+                                    octet=policy.octet_closest)
+        return tuple(x for x in out if x is not None)  # pending is None without mask columns
+
+    t, prim, u, v, *pending = _sorted_walk(kbvh, sort_rays, cols, walk)
+    pending = pending[0] if pending else None
     kind = torch.where(prim >= 0, KIND_TRIANGLE, KIND_MISS).to(torch.int32)
     t = torch.where(prim >= 0, t, torch.full_like(t, float(t_max)))
     if include_spheres and lights.shape[0] > 0:
@@ -213,30 +236,6 @@ def closest_hit(kbvh, lights, o, d, t_min, t_max,
             pending = pending & ~s_hit
     hit = Hit(t=t, kind=kind, prim=prim, u=u, v=v)
     return (hit, pending) if return_pending else hit
-
-
-def _closest_alpha(kbvh, o, d, t_min, t_max, include_spheres, active, sort_rays,
-                   policy: KernelPolicy, alpha: wide.AlphaTest):
-    """closest_hit with the alpha re-trace inside K1: (Hit, alpha.counters)."""
-    if not isinstance(kbvh, wide.WideKernelBVH) or policy.octet_closest:
-        raise ValueError("the alpha re-trace runs in K1 over the wide tables only")
-    n = o.shape[0]
-    if active is None:
-        active = torch.ones(n, dtype=torch.bool, device=o.device)
-    t_limit = torch.full((n,), float(np.float32(t_max)), dtype=torch.float32, device=o.device)
-    kw = dict(occlusion=False, cell_masks=policy.cell_masks_closest, spheres=include_spheres,
-              t_max=t_max)
-    if sort_rays and n > SORT_MIN_RAYS:
-        with annotate("ray_sort"):
-            key = _octant_morton_key(kbvh, o, d, active)
-            order, (op, dp, tp, ap) = _sort_rays(key, (o, d, t_min, active))
-        w = wide.alpha_packets(kbvh, op, dp, tp, t_limit, ap, alpha, **kw)
-        with annotate("ray_unsort"):
-            t, prim, u, v, kind = _unsort(order, w[:5])
-    else:
-        w = wide.alpha_packets(kbvh, o, d, t_min, t_limit, active, alpha, **kw)
-        t, prim, u, v, kind = w[:5]
-    return Hit(t=t, kind=kind, prim=prim, u=u, v=v), w.counters
 
 
 def occlusion_hit(kbvh, o, d, t_min, t_limit, active, scene_has_alpha: bool,
@@ -253,35 +252,22 @@ def occlusion_hit(kbvh, o, d, t_min, t_limit, active, scene_has_alpha: bool,
     if not isinstance(kbvh, wide.WideKernelBVH):
         raise TypeError("occlusion_hit needs the wide tables; the rope path traces "
                         "shadow rays with closest_hit")
-    n = o.shape[0]
+    if alpha is not None and policy.octet_occlusion:
+        raise ValueError("the alpha re-trace runs in K2, not in the multi-walk kernel")
     if active is None:
-        active = torch.ones(n, dtype=torch.bool, device=o.device)
+        active = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+    cols = (o, d, t_min, t_limit, active)
     if alpha is not None:
-        if policy.octet_occlusion:
-            raise ValueError("the alpha re-trace runs in K2, not in the multi-walk kernel")
-        if sort_rays and n > SORT_MIN_RAYS:
-            with annotate("ray_sort"):
-                key = _octant_morton_key(kbvh, o, d, active, ray_class)
-                order, (op, dp, tp, tl, ap) = _sort_rays(key, (o, d, t_min, t_limit, active))
-            w = wide.alpha_packets(kbvh, op, dp, tp, tl, ap, alpha, occlusion=True)
-            with annotate("ray_unsort"):
-                flag, t, prim, u, v, kind = _unsort(order, (w.flag, w.t, w.prim, w.u, w.v,
-                                                            w.kind))
-        else:
-            w = wide.alpha_packets(kbvh, o, d, t_min, t_limit, active, alpha, occlusion=True)
-            flag, t, prim, u, v, kind = w.flag, w.t, w.prim, w.u, w.v, w.kind
-        return flag > 0.0, Hit(t=t, kind=kind, prim=prim, u=u, v=v), w.counters
-    if sort_rays and n > SORT_MIN_RAYS:
-        with annotate("ray_sort"):
-            key = _octant_morton_key(kbvh, o, d, active, ray_class)
-            order, (op, dp, tp, tl, ap) = _sort_rays(key, (o, d, t_min, t_limit, active))
-        out = wide.occlusion_packets(kbvh, op, dp, tp, tl, ap, scene_has_alpha,
-                                     octet=policy.octet_occlusion)
-        with annotate("ray_unsort"):
-            blocked, t, prim, u, v = _unsort(order, out)
-    else:
-        blocked, t, prim, u, v = wide.occlusion_packets(
-            kbvh, o, d, t_min, t_limit, active, scene_has_alpha,
-            octet=policy.octet_occlusion)
+        def walk(*cols):
+            w = wide.alpha_packets(kbvh, *cols, alpha, occlusion=True)
+            return w.flag, w.t, w.prim, w.u, w.v, w.kind
+
+        flag, t, prim, u, v, kind = _sorted_walk(kbvh, sort_rays, cols, walk, ray_class)
+        return flag > 0.0, Hit(t=t, kind=kind, prim=prim, u=u, v=v), alpha.counters
+    blocked, t, prim, u, v = _sorted_walk(
+        kbvh, sort_rays, cols,
+        lambda *cols: wide.occlusion_packets(kbvh, *cols, scene_has_alpha,
+                                             octet=policy.octet_occlusion),
+        ray_class)
     kind = torch.where(prim >= 0, KIND_TRIANGLE, KIND_MISS).to(torch.int32)
     return blocked, Hit(t=t, kind=kind, prim=prim, u=u, v=v)

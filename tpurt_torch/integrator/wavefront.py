@@ -23,8 +23,10 @@ past its own rejected hits inside K1/K2 (the kernels' alpha re-trace,
 wide.alpha_packets): one launch a trace, with no host pass. Elsewhere
 (CPU tensors, the rope walk, the multi-walk kernel) `_trace` and
 `_shadow_blocked` run the host loop, which is the kernels' reference: a
-pass tests the committed hits (texture taps only on the rays whose cell
-is undecided) and re-traces only the rejected rays.
+pass tests the committed hits and re-traces only the rejected rays. Both
+apply one alpha rule, wide.alpha_rejected_plain (`_alpha_rejected` runs
+it on the tested lanes alone). The ray sort around each trace lives in
+bvh/traverse.py (`_sorted_walk`).
 """
 
 from __future__ import annotations
@@ -47,11 +49,10 @@ from tpurt_torch.kernels.intersect import (
     KIND_MISS,
     KIND_TRIANGLE,
     intersect_spheres,
-    mask_cell,
 )
 from tpurt_torch.kernels.lights import pdf_sphere, sample_hemisphere_uniform, sample_sphere
 from tpurt_torch.kernels.shade import WaveShade
-from tpurt_torch.kernels.texture import sample_texture_alpha_quad, sample_texture_quad
+from tpurt_torch.kernels.texture import sample_texture_quad
 from tpurt_torch.kernels import wide
 from tpurt_torch.kernels.wide import WideKernelBVH
 from tpurt_torch.scene.device import DeviceScene
@@ -108,32 +109,11 @@ def _hit_scatter(base: Hit, idx, part: Hit) -> Hit:
 
 # ---- alpha-tested any-hit ---------------------------------------------------
 
-def _alpha_eval(scene: DeviceScene, u, v, prim, tested) -> torch.Tensor:
-    """Exact any-hit alpha test: decided 4x4 cells answer from the fused
-    alpha row; the texture tap runs only on undecided cells."""
-    row = scene.tri_alpha_row[prim.long()]
-    cell = mask_cell(u, v)
-    tbit = (row[:, 9].to(torch.int32) >> cell) & 1
-    obit = (row[:, 10].to(torch.int32) >> cell) & 1
-    undecided = tested & (tbit == 0) & (obit == 0)
-    by_tap = torch.zeros_like(tested)
-    ui = _nz(undecided, "alpha_lanes")
-    if ui.numel():
-        r, uu, vv = row[ui], u[ui], v[ui]
-        w0 = 1.0 - uu - vv
-        uv_u = w0 * r[:, 3] + uu * r[:, 5] + vv * r[:, 7]
-        uv_v = w0 * r[:, 4] + uu * r[:, 6] + vv * r[:, 8]
-        tex = r[:, 2].to(torch.int32)
-        a = sample_texture_alpha_quad(scene.atlas_quad, scene.tex_table, tex, uv_u, uv_v)
-        a = torch.where(tex == NO_TEXTURE, torch.ones_like(a), a)
-        by_tap[ui] = a < r[:, 1]
-    return (tested & (tbit == 1)) | by_tap
-
-
 def _alpha_rejected(scene: DeviceScene, h: Hit, mask, pending=None) -> torch.Tensor:
-    """True where a committed hit must be ignored (albedo alpha below the
-    cutoff). `pending`, when the traversal ran its cell tests, already
-    says which lanes need the tap. Only those lanes are evaluated."""
+    """True where a committed hit must be ignored: the exact any-hit
+    alpha test (wide.alpha_rejected_plain, the rule the Alpha kernels
+    hold to) on the tested lanes alone. `pending`, when the traversal ran
+    its cell tests, already says which lanes need the tap."""
     is_tri = h.kind == KIND_TRIANGLE
     prim = torch.clamp(h.prim, 0, scene.tri_pos.shape[0] - 1)
     if pending is None:
@@ -143,7 +123,7 @@ def _alpha_rejected(scene: DeviceScene, h: Hit, mask, pending=None) -> torch.Ten
     out = torch.zeros_like(tested)
     idx = _nz(tested, "alpha_lanes")
     if idx.numel():
-        out[idx] = _alpha_eval(scene, h.u[idx], h.v[idx], prim[idx], tested[idx])
+        out[idx] = wide.alpha_rejected_plain(scene, prim[idx], h.u[idx], h.v[idx], tested[idx])
     return out
 
 

@@ -152,6 +152,41 @@ def launch_check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
 
+def launch(what: str, lib: str, argtypes: Dict[str, list], entry: str, rays, tables,
+           outs, args, launches: Dict[str, int], keys):
+    """The steps every traversal launch shares, in order: check the ray
+    columns `rays` = (o, d, t_min, t_limit[, active]) (on o's device, f32
+    and contiguous, `active` bool, of o's N rays) and the kernel's tables
+    (`tables(device)` raises unless they are fit and returns them);
+    allocate one (N,) output of each dtype in `outs`, returned unlaunched
+    when N == 0; else build and load csrc/<lib>.cu, call `entry` with
+    `args(tables, outputs, error word pointer, stream)` on the current
+    stream, raise if the launch was refused, and count it under each of
+    `keys` in `launches`. Returns the outputs. Does not wait for the
+    card: a fault surfaces at the next check_kernel_errors."""
+    o = rays[0]
+    dev, n = o.device, o.shape[0]
+    cols = (("d", (n, 3), torch.float32), ("t_min", (n,), torch.float32),
+            ("t_limit", (n,), torch.float32), ("active", (n,), torch.bool))
+    for (name, _, _), x in zip(cols, rays[1:]):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, rays are on {dev}")
+    check(o, "o", (n, 3))
+    for (name, shape, dtype), x in zip(cols, rays[1:]):
+        check(x, name, shape, dtype)
+    card = tables(dev)
+    out = tuple(torch.empty(n, dtype=dtype, device=dev) for dtype in outs)
+    if n == 0:
+        return out
+    fn = getattr(load(lib, argtypes), entry)
+    err = error_word(dev)
+    rc = fn(*args(card, out, err.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+    launch_check(rc, what)
+    for key in keys:
+        launches[key] += 1
+    return out
+
+
 def check(x: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
     """Raise unless `x` has the dtype, shape and contiguity a kernel reads."""
     if x.dtype != dtype:

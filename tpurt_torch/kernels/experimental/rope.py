@@ -44,6 +44,7 @@ packets, and the kernel skips threads past the last ray.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -52,7 +53,7 @@ import torch
 from tpurt_torch.bvh.lbvh import TriBVH
 from tpurt_torch.kernels import cudalib
 from tpurt_torch.kernels.intersect import mask_cell, ray_triangle_rows
-from tpurt_torch.kernels.wide import _exact_ints
+from tpurt_torch.kernels.wide import _exact_ints, _route
 
 PACKET = 1024  # tpurt's rays per packet; the kernels here have no packets
 _LANE = 128
@@ -362,53 +363,27 @@ def traverse_cuda(kbvh: KernelBVH, o, d, t_min, t_limit, active, *, occlusion: b
     current stream. Returns (t, prim, u, v, blocked) as traverse_plain
     does, bit for bit. Does not wait for the card: a walk that hits its
     step cap surfaces at the next cudalib.check_kernel_errors."""
-    dev = o.device
-    n = o.shape[0]
-    for name, x in (("d", d), ("t_min", t_min), ("t_limit", t_limit), ("active", active)):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, rays are on {dev}")
-    cudalib.check(o, "o", (n, 3))
-    cudalib.check(d, "d", (n, 3))
-    cudalib.check(t_min, "t_min", (n,))
-    cudalib.check(t_limit, "t_limit", (n,))
-    cudalib.check(active, "active", (n,), torch.bool)
-    card = _check_card(kbvh, dev)
-    out = (torch.empty(n, dtype=torch.float32, device=dev),
-           torch.empty(n, dtype=torch.int32, device=dev),
-           torch.empty(n, dtype=torch.float32, device=dev),
-           torch.empty(n, dtype=torch.float32, device=dev),
-           torch.empty(n, dtype=torch.float32, device=dev))
-    if n == 0:
-        return out
-    lib = cudalib.load(_LIB, _ARGTYPES)
-    fn = lib.tpurt_rope_occlusion if occlusion else lib.tpurt_rope_closest
-    rc = fn(card.boxes.data_ptr(), card.links.data_ptr(), kbvh.node_rows.shape[1],
-            kbvh.n_internal, card.tris.data_ptr(), kbvh.group_size,
-            int(kbvh.use_masks), int(all_definite),
-            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
-            active.data_ptr(), *(x.data_ptr() for x in out), n,
-            cudalib.error_word(dev).data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    cudalib.launch_check(rc, "rope traversal")
-    LAUNCHES["rope_occlusion" if occlusion else "rope_closest"] += 1
-    return out
+    rays = (o, d, t_min, t_limit, active)
+    return cudalib.launch(
+        "rope traversal", _LIB, _ARGTYPES,
+        "tpurt_rope_occlusion" if occlusion else "tpurt_rope_closest",
+        rays, partial(_check_card, kbvh), (torch.float32, torch.int32) + (torch.float32,) * 3,
+        lambda card, out, err, stream: (card.boxes.data_ptr(), card.links.data_ptr(),
+                                        kbvh.node_rows.shape[1], kbvh.n_internal,
+                                        card.tris.data_ptr(), kbvh.group_size,
+                                        int(kbvh.use_masks), int(all_definite),
+                                        *(x.data_ptr() for x in rays + out), o.shape[0], err,
+                                        stream),
+        LAUNCHES, ["rope_occlusion" if occlusion else "rope_closest"])
 
 
 def _traverse(kbvh: KernelBVH, o, d, t_min, t_limit, active, *, occlusion, all_definite):
-    """Route by device: CPU tensors to the plain walk, CUDA tensors to the
-    kernel, anything else raises."""
-    o = o.contiguous().to(torch.float32)
-    d = d.contiguous().to(torch.float32)
-    t_min = t_min.contiguous().to(torch.float32)
-    t_limit = t_limit.contiguous().to(torch.float32)
-    active = active.contiguous().to(torch.bool)
-    if o.is_cuda:
-        return traverse_cuda(kbvh, o, d, t_min, t_limit, active, occlusion=occlusion,
-                             all_definite=all_definite)
-    if o.device.type == "cpu":
-        return traverse_plain(kbvh.node_rows, kbvh.tri_rows, o, d, t_min, t_limit, active,
-                              n_internal=kbvh.n_internal, group=kbvh.group_size,
-                              occlusion=occlusion, all_definite=all_definite)
-    raise ValueError(f"no rope traversal for device {o.device}")
+    """Route by device (wide._route): the plain walk or the kernel."""
+    kw = dict(occlusion=occlusion, all_definite=all_definite)
+    return _route(partial(traverse_plain, kbvh.node_rows, kbvh.tri_rows,
+                          n_internal=kbvh.n_internal, group=kbvh.group_size, **kw),
+                  partial(traverse_cuda, kbvh, **kw), o, d, t_min, t_limit,
+                  active.contiguous().to(torch.bool))
 
 
 def original_ids(kbvh: KernelBVH, slot):

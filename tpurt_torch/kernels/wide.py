@@ -26,13 +26,16 @@ Three parts:
    integrator's host loop is its reference).
 3. The kernel wrappers `traverse_packets` / `occlusion_packets` (with
    `octet=N` the multi-walk kernel), `alpha_packets` (K1/K2's Alpha
-   instantiations) and `stepcost_packets`. A CPU tensor
+   instantiations) and `stepcost_packets`. One function, `_route`,
+   casts the rays and routes them (rope.py's walks too): a CPU tensor
    goes to the plain version; a CUDA tensor goes to the hand-written
    kernel, built with nvcc on first use and bound through ctypes:
    csrc/wide_traverse.cu (K1 closest hit, K2 occlusion),
    csrc/wide_octet.cu (K5), csrc/wide_stepcost.cu (K6), all three over
    the card tables and their hit-mask stacks. There is no fallback from
-   one to the other.
+   one to the other. Every launcher (`traverse_cuda`, `alpha_walk_cuda`,
+   `octet_cuda`, `stepcost_cuda`, rope.traverse_cuda) goes through
+   cudalib.launch, which checks, allocates, launches and counts.
 
 Per-ray semantics of K1/K2. A ray picks the node rows of its own
 direction octant; tpurt's Pallas kernel picks one octant per 1024-ray
@@ -53,7 +56,8 @@ mask columns, K2's blocked set.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from functools import partial
+from typing import TYPE_CHECKING, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -71,6 +75,9 @@ from tpurt_torch.kernels.intersect import (
 from tpurt_torch.kernels.texture import sample_texture_alpha_quad
 from tpurt_torch.scene.types import NO_TEXTURE
 from tpurt_torch.utils.profiling import host_sync
+
+if TYPE_CHECKING:
+    from tpurt_torch.scene.device import DeviceScene
 
 ARITY = 16
 _LANE = 128
@@ -874,11 +881,14 @@ def stepcost_plain(node_rows, tri_rows, o, d, t_min, t_limit, *, group: int, ari
     return t_best, prim, acc
 
 
-def alpha_rejected_plain(alpha: AlphaTest, prim, u, v, tested):
-    """The integrator's exact alpha test (wavefront._alpha_eval) on every
-    ray at once: True where a tested hit is rejected, by its decided cell
-    of the fused alpha row or else by the NEAREST tap below the cutoff
-    (NO_TEXTURE reads as opaque)."""
+def alpha_rejected_plain(alpha: Union[AlphaTest, DeviceScene], prim, u, v, tested):
+    """The exact any-hit alpha test on every ray at once, the one rule in
+    Python (the Alpha kernels hold to it; the integrator's host loop,
+    wavefront._alpha_rejected, calls it on its tested lanes): True where
+    a tested hit is rejected, by its decided cell of the fused alpha row
+    or else by the NEAREST tap below the cutoff (NO_TEXTURE reads as
+    opaque). Reads only `alpha`'s tri_alpha_row, tex_table and
+    atlas_quad, which an AlphaTest and a DeviceScene both have."""
     row = alpha.tri_alpha_row[torch.clamp(prim, 0, alpha.tri_alpha_row.shape[0] - 1).long()]
     cell = mask_cell(u, v)
     tbit = (row[:, 9].to(torch.int32) >> cell) & 1
@@ -973,21 +983,15 @@ _ARGTYPES = {**{name: cudalib.argtypes(_WALK_ARGS)
                 for name in ("tpurt_wide_closest_alpha", "tpurt_wide_occlusion_alpha")}}
 
 
-def _check_launch(kbvh: WideKernelBVH, o, d, t_min, t_limit, plain_stack: bool = True):
-    """Raise unless the tables and rays are what the wide kernels read and,
-    with `plain_stack`, the topology's per-child stack bound fits the plain
-    versions' MAX_STACK (K1's and K6's equality with them rests on it; K5
-    does without)."""
-    dev = o.device
-    n = o.shape[0]
-    for name, x in (("node_rows", kbvh.node_rows), ("tri_rows", kbvh.tri_rows),
-                    ("t_min", t_min), ("t_limit", t_limit), ("d", d)):
+def _check_launch(kbvh: WideKernelBVH, dev, plain_stack: bool = True) -> CardTables:
+    """Raise unless the tables are what the wide kernels read, on the rays'
+    device `dev`, and, with `plain_stack`, the topology's per-child stack
+    bound fits the plain versions' MAX_STACK (K1's and K6's equality with
+    them rests on it; K5 does without). Returns the card tables
+    (_check_card)."""
+    for name, x in (("node_rows", kbvh.node_rows), ("tri_rows", kbvh.tri_rows)):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, rays are on {dev}")
-    cudalib.check(o, "o", (n, 3))
-    cudalib.check(d, "d", (n, 3))
-    cudalib.check(t_min, "t_min", (n,))
-    cudalib.check(t_limit, "t_limit", (n,))
     cudalib.check(kbvh.node_rows, "node_rows", (8, kbvh.node_rows.shape[1], _LANE))
     cudalib.check(kbvh.tri_rows, "tri_rows", tuple(kbvh.tri_rows.shape))
     if kbvh.arity * 8 > _LANE:
@@ -995,6 +999,7 @@ def _check_launch(kbvh: WideKernelBVH, o, d, t_min, t_limit, plain_stack: bool =
     if plain_stack and kbvh.stack_bound > MAX_STACK:
         raise ValueError(f"stack bound {kbvh.stack_bound} exceeds the kernel's "
                          f"{MAX_STACK}-entry stack")
+    return _check_card(kbvh, dev)
 
 
 def _check_card(kbvh: WideKernelBVH, dev) -> CardTables:
@@ -1020,10 +1025,16 @@ def _check_card(kbvh: WideKernelBVH, dev) -> CardTables:
     return card
 
 
-def _outputs(n, dev, flag_dtype=torch.float32):
-    return (torch.empty(n, dtype=torch.float32, device=dev),
-            torch.empty(n, dtype=torch.int32, device=dev),
-            torch.empty(n, dtype=flag_dtype, device=dev))
+# the dtypes of (t, prim, flag)
+_OUTS = (torch.float32, torch.int32, torch.float32)
+
+
+def _walk_args(kbvh: WideKernelBVH, card: CardTables, rays, out) -> tuple:
+    """The arguments K1/K2, K5 and K6 open with: the card tables, the four
+    ray columns, three outputs and the ray count."""
+    return (card.nodes.data_ptr(), kbvh.node_rows.shape[1], kbvh.arity,
+            card.leaves.data_ptr(), kbvh.group_size, *(x.data_ptr() for x in rays[:4]),
+            *(x.data_ptr() for x in out[:3]), rays[0].shape[0])
 
 
 def traverse_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, occlusion: bool,
@@ -1032,31 +1043,20 @@ def traverse_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, occlusion: bool,
     current stream. Returns (t, prim, flag) as traverse_plain does, bit
     for bit. Does not wait for the card: a walk past the depth bound
     surfaces at the next cudalib.check_kernel_errors."""
-    dev = o.device
-    n = o.shape[0]
-    _check_launch(kbvh, o, d, t_min, t_limit)
-    card = _check_card(kbvh, dev)
-    t, prim, flag = _outputs(n, dev)
-    if n == 0:
-        return t, prim, flag
-    lib = cudalib.load(_LIB, _ARGTYPES)
-    err = cudalib.error_word(dev)
-    fn = lib.tpurt_wide_occlusion if occlusion else lib.tpurt_wide_closest
+    rays = (o, d, t_min, t_limit)
     apply_masks = kbvh.use_masks and (occlusion or cell_masks)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(card.nodes.data_ptr(), kbvh.node_rows.shape[1], kbvh.arity,
-            card.leaves.data_ptr(), kbvh.group_size,
-            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
-            t.data_ptr(), prim.data_ptr(), flag.data_ptr(), n,
-            int(apply_masks), int(all_definite), kbvh.depth_bound, err.data_ptr(), stream)
-    cudalib.launch_check(rc, "wide traversal")
-    LAUNCHES["occlusion" if occlusion else "closest"] += 1
-    return t, prim, flag
+    return cudalib.launch(
+        "wide traversal", _LIB, _ARGTYPES,
+        "tpurt_wide_occlusion" if occlusion else "tpurt_wide_closest",
+        rays, lambda dev: _check_launch(kbvh, dev), _OUTS,
+        lambda card, out, err, stream: (*_walk_args(kbvh, card, rays, out), int(apply_masks),
+                                        int(all_definite), kbvh.depth_bound, err, stream),
+        LAUNCHES, ["occlusion" if occlusion else "closest"])
 
 
-def _check_alpha(alpha: AlphaTest, active, n, dev) -> None:
-    """Raise unless the alpha tables, `active` and the counters are what the
-    Alpha kernels read, on the rays' device."""
+def _check_alpha(alpha: AlphaTest, dev) -> None:
+    """Raise unless the alpha tables and the counters are what the Alpha
+    kernels read, on the rays' device."""
     n_tri = alpha.tri_alpha_row.shape[0]
     qh, qw = alpha.atlas_quad.shape[:2]
     for name, x, shape, dtype in (
@@ -1064,8 +1064,7 @@ def _check_alpha(alpha: AlphaTest, active, n, dev) -> None:
             ("tri_alpha_row", alpha.tri_alpha_row, (n_tri, 11), torch.float32),
             ("tex_table", alpha.tex_table, (alpha.tex_table.shape[0], 10), torch.int32),
             ("atlas_quad", alpha.atlas_quad, (qh, qw, 16), torch.uint8),
-            ("lights", alpha.lights, (alpha.lights.shape[0], 8), torch.float32),
-            ("active", active, (n,), torch.bool)):
+            ("lights", alpha.lights, (alpha.lights.shape[0], 8), torch.float32)):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, rays are on {dev}")
         cudalib.check(x, name, shape, dtype)
@@ -1084,37 +1083,32 @@ def alpha_walk_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, active, alpha: Al
     Alpha instantiations of csrc/wide_traverse.cu) on the current stream.
     Returns the AlphaWalk of alpha_walk_plain, bit for bit; the counters
     are filled when the launch ends. Does not wait for the card."""
-    dev = o.device
-    n = o.shape[0]
-    _check_launch(kbvh, o, d, t_min, t_limit)
-    card = _check_card(kbvh, dev)
-    _check_alpha(alpha, active, n, dev)
-    t, prim, flag = _outputs(n, dev)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    kind = torch.empty(n, dtype=torch.int32, device=dev)
-    if n == 0:
-        return AlphaWalk(t, prim, u, v, kind, flag, alpha.counters)
-    lib = cudalib.load(_LIB, _ARGTYPES)
-    err = cudalib.error_word(dev)
-    fn = lib.tpurt_wide_occlusion_alpha if occlusion else lib.tpurt_wide_closest_alpha
     apply_masks = kbvh.use_masks and (occlusion or cell_masks)
     nl = alpha.lights.shape[0] if spheres and not occlusion else 0
     qh, qw = alpha.atlas_quad.shape[:2]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(card.nodes.data_ptr(), kbvh.node_rows.shape[1], kbvh.arity,
-            card.leaves.data_ptr(), kbvh.group_size,
-            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
-            t.data_ptr(), prim.data_ptr(), flag.data_ptr(), n,
-            int(apply_masks), 0, kbvh.depth_bound, err.data_ptr(), stream,
-            alpha.tri_alpha.data_ptr(), alpha.tri_alpha_row.data_ptr(),
-            alpha.tex_table.data_ptr(), alpha.atlas_quad.data_ptr(), alpha.lights.data_ptr(),
-            active.data_ptr(), u.data_ptr(), v.data_ptr(), kind.data_ptr(),
-            None if alpha.counters is None else alpha.counters.data_ptr(),
-            alpha.tri_alpha_row.shape[0], alpha.tex_table.shape[0], qh, qw, nl,
-            alpha.max_skips, float(np.float32(t_max)))
-    cudalib.launch_check(rc, "wide traversal with alpha re-trace")
-    LAUNCHES["occlusion" if occlusion else "closest"] += 1
-    LAUNCHES["occlusion_alpha" if occlusion else "closest_alpha"] += 1
+
+    def tables(dev):
+        card = _check_launch(kbvh, dev)
+        _check_alpha(alpha, dev)
+        return card
+
+    def args(card, out, err, stream):
+        u, v, kind = out[3:]
+        return (*_walk_args(kbvh, card, (o, d, t_min, t_limit), out), int(apply_masks), 0,
+                kbvh.depth_bound, err, stream,
+                alpha.tri_alpha.data_ptr(), alpha.tri_alpha_row.data_ptr(),
+                alpha.tex_table.data_ptr(), alpha.atlas_quad.data_ptr(), alpha.lights.data_ptr(),
+                active.data_ptr(), u.data_ptr(), v.data_ptr(), kind.data_ptr(),
+                None if alpha.counters is None else alpha.counters.data_ptr(),
+                alpha.tri_alpha_row.shape[0], alpha.tex_table.shape[0], qh, qw, nl,
+                alpha.max_skips, float(np.float32(t_max)))
+
+    t, prim, flag, u, v, kind = cudalib.launch(
+        "wide traversal with alpha re-trace", _LIB, _ARGTYPES,
+        "tpurt_wide_occlusion_alpha" if occlusion else "tpurt_wide_closest_alpha",
+        (o, d, t_min, t_limit, active), tables,
+        _OUTS + (torch.float32, torch.float32, torch.int32), args, LAUNCHES,
+        ["occlusion", "occlusion_alpha"] if occlusion else ["closest", "closest_alpha"])
     return AlphaWalk(t, prim, u, v, kind, flag, alpha.counters)
 
 
@@ -1142,48 +1136,45 @@ def octet_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, walks: int, occlusi
     the next cudalib.check_kernel_errors."""
     if walks not in OCTET_WALKS:
         raise ValueError(f"octet walks must be one of {OCTET_WALKS}, got {walks}")
-    dev = o.device
-    n = o.shape[0]
-    _check_launch(kbvh, o, d, t_min, t_limit, plain_stack=False)
-    card = _check_card(kbvh, dev)
-    t, prim, flag = _outputs(n, dev)
-    if n == 0:
-        return t, prim, flag
-    lib = cudalib.load(_OCTET_LIB, _OCTET_ARGTYPES)
-    err = cudalib.error_word(dev)
-    fn = lib.tpurt_octet_occlusion if occlusion else lib.tpurt_octet_closest
+    rays = (o, d, t_min, t_limit)
     apply_masks = kbvh.use_masks and (occlusion or cell_masks)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(card.nodes.data_ptr(), kbvh.node_rows.shape[1], kbvh.arity,
-            card.leaves.data_ptr(), kbvh.group_size,
-            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
-            t.data_ptr(), prim.data_ptr(), flag.data_ptr(), n,
-            int(apply_masks), int(all_definite), walks, kbvh.depth_bound,
-            int(octet_warp_per_walk(n, walks)), err.data_ptr(), stream)
-    cudalib.launch_check(rc, "multi-walk traversal")
-    LAUNCHES["octet_occlusion" if occlusion else "octet_closest"] += 1
-    return t, prim, flag
+    return cudalib.launch(
+        "multi-walk traversal", _OCTET_LIB, _OCTET_ARGTYPES,
+        "tpurt_octet_occlusion" if occlusion else "tpurt_octet_closest",
+        rays, lambda dev: _check_launch(kbvh, dev, plain_stack=False), _OUTS,
+        lambda card, out, err, stream: (*_walk_args(kbvh, card, rays, out), int(apply_masks),
+                                        int(all_definite), walks, kbvh.depth_bound,
+                                        int(octet_warp_per_walk(o.shape[0], walks)), err,
+                                        stream),
+        LAUNCHES, ["octet_occlusion" if occlusion else "octet_closest"])
+
+
+def _route(plain, kernel, o, d, t_min, t_limit, *rest):
+    """Cast the ray columns to contiguous f32 and route by device: CPU
+    tensors to `plain`, CUDA tensors to `kernel` (each called with the
+    cast columns and `rest`), anything else raises. There is no fallback
+    from one to the other."""
+    o, d, t_min, t_limit = (x.contiguous().to(torch.float32) for x in (o, d, t_min, t_limit))
+    if o.is_cuda:
+        return kernel(o, d, t_min, t_limit, *rest)
+    if o.device.type == "cpu":
+        return plain(o, d, t_min, t_limit, *rest)
+    raise ValueError(f"no traversal for device {o.device}")
 
 
 def _traverse(kbvh, o, d, t_min, t_limit, *, occlusion, all_definite, cell_masks, octet=0):
-    """Route by device: CPU tensors to the plain version, CUDA tensors to
-    the kernel (K1/K2, or K5 with `octet` walks), anything else raises."""
+    """Route by device (_route): the plain version or the kernel, K1/K2,
+    or K5 with `octet` walks."""
     if octet and octet not in OCTET_WALKS:
         raise ValueError(f"octet must be 0 or one of {OCTET_WALKS}, got {octet}")
-    o = o.contiguous().to(torch.float32)
-    d = d.contiguous().to(torch.float32)
-    t_min = t_min.contiguous().to(torch.float32)
-    t_limit = t_limit.contiguous().to(torch.float32)
     kw = dict(occlusion=occlusion, all_definite=all_definite, cell_masks=cell_masks)
-    if o.is_cuda:
-        if octet:
-            return octet_cuda(kbvh, o, d, t_min, t_limit, walks=octet, **kw)
-        return traverse_cuda(kbvh, o, d, t_min, t_limit, **kw)
-    if o.device.type == "cpu":
-        plain = (lambda **k: octet_plain(walks=octet, **k)) if octet else traverse_plain
-        return plain(node_rows=kbvh.node_rows, tri_rows=kbvh.tri_rows, o=o, d=d, t_min=t_min,
-                     t_limit=t_limit, group=kbvh.group_size, arity=kbvh.arity, **kw)
-    raise ValueError(f"no traversal for device {o.device}")
+    tables = dict(group=kbvh.group_size, arity=kbvh.arity)
+    if octet:
+        return _route(partial(octet_plain, kbvh.node_rows, kbvh.tri_rows, walks=octet,
+                              **tables, **kw),
+                      partial(octet_cuda, kbvh, walks=octet, **kw), o, d, t_min, t_limit)
+    return _route(partial(traverse_plain, kbvh.node_rows, kbvh.tri_rows, **tables, **kw),
+                  partial(traverse_cuda, kbvh, **kw), o, d, t_min, t_limit)
 
 
 def _t_limit(t_limit, active):
@@ -1228,17 +1219,9 @@ def alpha_packets(kbvh: WideKernelBVH, o, d, t_min, t_limit, active, alpha: Alph
     lights with `spheres`) or K2 (occlusion) with the alpha re-trace of
     rejected hits: alpha_walk_cuda on CUDA tensors, alpha_walk_plain on
     CPU tensors, anything else raises. Inactive rays miss."""
-    o = o.contiguous().to(torch.float32)
-    d = d.contiguous().to(torch.float32)
-    t_min = t_min.contiguous().to(torch.float32)
-    t_limit = _t_limit(t_limit.contiguous().to(torch.float32), active).contiguous()
-    active = active.contiguous()
     kw = dict(occlusion=occlusion, cell_masks=cell_masks, spheres=spheres, t_max=t_max)
-    if o.is_cuda:
-        return alpha_walk_cuda(kbvh, o, d, t_min, t_limit, active, alpha, **kw)
-    if o.device.type == "cpu":
-        return alpha_walk_plain(kbvh, o, d, t_min, t_limit, active, alpha, **kw)
-    raise ValueError(f"no traversal for device {o.device}")
+    return _route(partial(alpha_walk_plain, kbvh, **kw), partial(alpha_walk_cuda, kbvh, **kw),
+                  o, d, t_min, _t_limit(t_limit, active), active.contiguous(), alpha)
 
 
 def occlusion_packets(kbvh: WideKernelBVH, o, d, t_min, t_limit, active,
@@ -1285,25 +1268,14 @@ def stepcost_cuda(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, steps: int,
     if not any(toggles == {**_STEPCOST_ALL_ON, **c} for _, c in STEPCOST_CONFIGS):
         raise ValueError(f"K6 is built for the STEPCOST_CONFIGS combinations only, "
                          f"not {toggles}")
-    dev = o.device
-    n = o.shape[0]
-    _check_launch(kbvh, o, d, t_min, t_limit)
-    card = _check_card(kbvh, dev)
-    t, prim, acc = _outputs(n, dev, torch.int32)
-    if n == 0:
-        return t, prim, acc
-    lib = cudalib.load(_STEPCOST_LIB, _STEPCOST_ARGTYPES)
-    err = cudalib.error_word(dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.tpurt_stepcost(card.nodes.data_ptr(), kbvh.node_rows.shape[1], kbvh.arity,
-                            card.leaves.data_ptr(), kbvh.group_size,
-                            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_limit.data_ptr(),
-                            t.data_ptr(), prim.data_ptr(), acc.data_ptr(), n, steps,
-                            int(do_box), int(do_extract), int(do_push), int(do_leaf),
-                            kbvh.depth_bound, err.data_ptr(), stream)
-    cudalib.launch_check(rc, "step-cost")
-    LAUNCHES["stepcost"] += 1
-    return t, prim, acc
+    rays = (o, d, t_min, t_limit)
+    return cudalib.launch(
+        "step-cost", _STEPCOST_LIB, _STEPCOST_ARGTYPES, "tpurt_stepcost", rays,
+        lambda dev: _check_launch(kbvh, dev), (torch.float32, torch.int32, torch.int32),
+        lambda card, out, err, stream: (*_walk_args(kbvh, card, rays, out), steps, int(do_box),
+                                        int(do_extract), int(do_push), int(do_leaf),
+                                        kbvh.depth_bound, err, stream),
+        LAUNCHES, ["stepcost"])
 
 
 def stepcost_packets(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, steps: int,
@@ -1317,15 +1289,8 @@ def stepcost_packets(kbvh: WideKernelBVH, o, d, t_min, t_limit, *, steps: int,
     `collapse_mode` time the TPU's cross-lane collapse of a packet's hit
     masks, which a walk with one thread per ray does not have; tpurt's
     `unroll` has no counterpart either (any `steps` >= 1 is taken)."""
-    o = o.contiguous().to(torch.float32)
-    d = d.contiguous().to(torch.float32)
-    t_min = t_min.contiguous().to(torch.float32)
-    t_limit = t_limit.contiguous().to(torch.float32)
     kw = dict(steps=steps, do_box=do_box, do_extract=do_extract, do_push=do_push,
               do_leaf=do_leaf)
-    if o.is_cuda:
-        return stepcost_cuda(kbvh, o, d, t_min, t_limit, **kw)
-    if o.device.type == "cpu":
-        return stepcost_plain(kbvh.node_rows, kbvh.tri_rows, o, d, t_min, t_limit,
-                              group=kbvh.group_size, arity=kbvh.arity, **kw)
-    raise ValueError(f"no step-cost walk for device {o.device}")
+    return _route(partial(stepcost_plain, kbvh.node_rows, kbvh.tri_rows, group=kbvh.group_size,
+                          arity=kbvh.arity, **kw),
+                  partial(stepcost_cuda, kbvh, **kw), o, d, t_min, t_limit)

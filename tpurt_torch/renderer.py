@@ -22,7 +22,12 @@ Two render paths, chosen at construction:
   row (`wide.wide_supported`).
 
 Unlike tpurt, the path does not depend on the device: the CPU runs the
-same path through each kernel's plain version.
+same path through each kernel's plain version, with one exception. On a
+scene with alpha-MASK materials the card re-traces past rejected alpha
+hits inside K1/K2 (wide.alpha_packets), while the CPU, the rope path and
+K5 run the integrator's host loop (wavefront._trace, _shadow_blocked);
+both apply the one alpha rule, wide.alpha_rejected_plain, and agree ray
+by ray.
 """
 
 from __future__ import annotations
